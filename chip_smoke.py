@@ -7,21 +7,28 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels from ``speech_enhancement_torch/kernels/
 csrc``, holds each against its plain PyTorch version at the shapes of the
-serving path, then serves three 10 s requests with DCCRN at the full width
-of ``configs/dccrn_vbd.yaml`` (bf16, random weights from a seeded
-``torch.Generator``) through ``train/evaluate.py:evaluate_utterance``, and
-checks that the path went through both kernels. It imports nothing of JAX.
+serving path (the two block kernels at all twelve blocks of the model),
+then serves three 10 s requests with DCCRN at the full width of
+``configs/dccrn_vbd.yaml`` (bf16, random weights from a seeded
+``torch.Generator``) through ``train/evaluate.py:evaluate_utterance``,
+twice: with the default unfused encoder/decoder, which goes through the
+STFT and mask-E kernels, and with ``model.use_fused_blocks = True``, which
+goes through all four kernels; it checks the launches of each run and
+that the two agree. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on the main path, max abs error
 against the plain version, kernel / plain / library times and the least
-time the card could take), and as the last line
+time the card could take; for the two block kernels each time is the sum
+over the model's six blocks of that kind, one launch each, and the error
+the largest of the six), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line is printed; so does a host without CUDA.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -31,13 +38,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from speech_enhancement_torch.config import Config, load_config
 from speech_enhancement_torch.kernels import _build
+from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_conv_block_plain,
+                                                         fused_deconv_block,
+                                                         fused_deconv_block_plain)
 from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain
 from speech_enhancement_torch.kernels.stft import stft_kernel, stft_plain
 from speech_enhancement_torch.models import build_model
 from speech_enhancement_torch.models.dccrn import _stft_bases
+from speech_enhancement_torch.ops.complex_conv import (complex_cat, conv_from_hwio,
+                                                       deconv_from_hwio)
 from speech_enhancement_torch.train.evaluate import evaluate_utterance, extract_windows
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -50,6 +63,7 @@ SECONDS = 10.0
 # a kernel's work is the larger of bytes / HBM rate and FLOPs / f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # Tolerances, stated before the run:
 STFT_RTOL, STFT_ATOL = 1e-4, 2e-3  # f32 sums of 400 products, as tests/test_pallas.py:22
@@ -60,6 +74,13 @@ MASK_ATOL = 1e-5                   # same f32 formula per element; |out| ~ 1-10
 # <= 20% of the enhanced waveform's RMS
 BF16_MEAN_FRAC, BF16_MAX_FRAC = 0.02, 0.20
 F32_ATOL = 2e-4                    # small f32 DCCRN, card vs CPU plain path (tests' parity bound)
+# block kernels vs their plain versions in bf16: both round the same f32
+# pointwise to bf16 and the f32 conv sum once, in another summation order,
+# so an output may sit one bf16 step (2^-7 relative at most) apart:
+# |dy| <= 2^-7 |y_plain| + 1e-3. Stats partials (f32 sums over 643 frames,
+# atomics across frame tiles): within 1e-3 of each lane's largest magnitude.
+BLOCK_RTOL, BLOCK_ATOL, STATS_RTOL = 2.0**-7, 1e-3, 1e-3
+BLOCK_BATCH, BLOCK_FRAMES = 192, 643  # one request's windows, frames of a 4 s window
 
 
 def log(msg: str) -> None:
@@ -182,96 +203,345 @@ def kernel_phase(dev) -> dict:
     return results
 
 
-def reference_phase(dev) -> float:
+def model_blocks(kernel_num, n_freq: int = 256):
+    """(name, f_in, input widths, c2out) of DCCRN's six encoder and six
+    decoder blocks; widths count stacked (r, i) channels."""
+    blocks, c2in, f = [], 2, n_freq
+    for i, c2out in enumerate(kernel_num):
+        blocks.append((f"enc{i}", f, (c2in,), c2out))
+        c2in, f = c2out, f // 2
+    dec_out = list(kernel_num[::-1][1:]) + [2]
+    for i, c2out in enumerate(dec_out):
+        blocks.append((f"dec{i}", f, (c2in, kernel_num[len(kernel_num) - 1 - i]), c2out))
+        c2in, f = c2out, 2 * f
+    return blocks
+
+
+def block_work(name: str, batch: int, f_in: int, widths, c2out: int, n_time: int):
+    """(FLOPs, bytes) of one block launch: 2 x (live input rows x time taps
+    x input channels) per output, counting only the frequency taps that land
+    inside the input; inputs and the output read or written once in bf16."""
+    dec = name.startswith("dec")
+    f_out = 2 * f_in if dec else f_in // 2
+    live = 0
+    for fo in range(f_out):
+        for jf in range(5):
+            if dec and (fo + jf) % 2:
+                continue
+            fi = (fo + jf - 2) // 2 if dec else 2 * fo + jf - 2
+            live += 0 <= fi < f_in
+    flops = 2.0 * batch * n_time * c2out * live * 2 * sum(widths)
+    nbytes = 2.0 * batch * n_time * (f_in * sum(widths) + f_out * c2out) + 2.0 * 10 * sum(
+        widths) * c2out
+    return flops, nbytes
+
+
+def block_inputs(dev, gen, name, batch, f_in, widths, c2out, n_time):
+    """bf16 activations, HWIO weights with unit-variance outputs, bias,
+    coefficients near identity and PReLU slopes, on the card."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    acts = [randn(batch, f_in * c2, n_time).to(torch.bfloat16) for c2 in widths]
+    w2 = randn(5, 2, sum(widths), c2out) / float(np.sqrt(10 * sum(widths)))
+    b2 = 0.1 * randn(c2out)
+    coefs = [(1 + 0.1 * randn(c2), 0.1 * randn(c2), 0.1 * randn(c2)) for c2 in widths]
+    alphas = [torch.full((1,), 0.25, device=dev) for _ in widths]
+    return acts, w2, b2, coefs, alphas
+
+
+def block_calls(name, f_in, widths, c2out, acts, w2, b2, coefs, alphas):
+    """(kernel(with_stats=...), plain(with_stats=...), library call) of one
+    block. The library call is the unfused path's cuDNN bf16 convolution
+    alone: no complex-BN / PReLU prologue and no stats, so less work than
+    the kernel."""
+    if name.startswith("enc"):
+        shapes = dict(f_in=f_in, c2in=widths[0], c2out=c2out)
+        args = (acts[0], w2, b2, *coefs[0], alphas[0])
+        kernel = functools.partial(fused_conv_block, *args, **shapes)
+        plain = functools.partial(fused_conv_block_plain, *args, **shapes)
+        # cuDNN's bf16 conv alone, on an input of the activated input's shape
+        # and type, padded and in NCHW beforehand
+        xp = F.pad(acts[0].view(acts[0].shape[0], f_in, widths[0], -1).permute(0, 2, 1, 3),
+                   (1, 0, 2, 2)).contiguous()
+        k = conv_from_hwio(w2).to(torch.bfloat16).contiguous()
+        bias = b2.to(torch.bfloat16)
+        library = functools.partial(F.conv2d, xp, k, bias, stride=(2, 1))
+    else:
+        shapes = dict(f_in=f_in, c2x=widths[0], c2s=widths[1], c2out=c2out)
+        args = (acts[0], acts[1], w2, b2, coefs[0], alphas[0], coefs[1], alphas[1])
+        kernel = functools.partial(fused_deconv_block, *args, **shapes)
+        plain = functools.partial(fused_deconv_block_plain, *args, **shapes)
+        nchw = [a.view(a.shape[0], f_in, c2, -1).permute(0, 2, 1, 3)
+                for a, c2 in zip(acts, widths)]
+        joined = complex_cat(*nchw).contiguous()
+        k = deconv_from_hwio(w2).to(torch.bfloat16).contiguous()
+        bias = b2.to(torch.bfloat16)
+        library = functools.partial(F.conv_transpose2d, joined, k, bias, stride=(2, 1),
+                                    padding=(2, 0), output_padding=(1, 0))
+    return kernel, plain, library
+
+
+def block_close(got, want) -> float:
+    """Max abs error of a bf16 block output; fails past the stated bound."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if got.shape != want.shape or not bool((err <= BLOCK_RTOL * want.abs() + BLOCK_ATOL).all()):
+        return float("inf")
+    return err.max().item()
+
+
+def stats_err(got, want) -> float:
+    """Largest stats error as a share of its lane's largest magnitude."""
+    scale = want.abs().amax(dim=(0, 1), keepdim=True) + 1e-6
+    return ((got - want).abs() / scale).max().item()
+
+
+def block_kernel_phase(dev, kernel_num) -> dict:
+    """Both block kernels vs their plain versions at the twelve full-width
+    blocks (B = 192 windows, T = 643 frames, bf16), with and without stats,
+    then the small-K enc0 and the two-channel dec5 at B = 1 with T = 100.
+    Returns the per-kernel entries of the kernels line: times summed over
+    the six blocks of each kind, the largest error of the six."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for name, f_in, widths, c2out in model_blocks(kernel_num):
+        inputs = block_inputs(dev, gen, name, BLOCK_BATCH, f_in, widths, c2out, BLOCK_FRAMES)
+        kernel, plain, library = block_calls(name, f_in, widths, c2out, *inputs)
+        err = block_close(kernel(), plain())
+        (y, st), (y_p, st_p) = kernel(with_stats=True), plain(with_stats=True)
+        torch.cuda.synchronize()
+        err_stats_y, err_stats = block_close(y, y_p), stats_err(st, st_p)
+        if max(err, err_stats_y) == float("inf") or err_stats > STATS_RTOL:
+            fail(f"{name} kernel disagrees with plain: y {err}, with stats y {err_stats_y}, "
+                 f"stats {err_stats} (bounds |dy| <= {BLOCK_RTOL:g}|y| + {BLOCK_ATOL:g}, "
+                 f"stats {STATS_RTOL:g})")
+        flops, nbytes = block_work(name, BLOCK_BATCH, f_in, widths, c2out, BLOCK_FRAMES)
+        row = {"block": name, "f_in": f_in, "widths": widths, "c2out": c2out,
+               "max_abs_err": err, "stats_err": err_stats,
+               "ms": cuda_ms(kernel, reps=10), "ms_stats": cuda_ms(
+                   lambda: kernel(with_stats=True), reps=10),
+               "plain_ms": cuda_ms(plain, reps=5), "library_ms": cuda_ms(library, reps=10),
+               "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+               "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "gflop": flops / 1e9}
+        row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
+        row["bound_by"] = ("operations" if row["flops_bound_ms"] > row["bytes_bound_ms"]
+                           else "bytes")
+        rows.append(row)
+        log(f"block {name}: f_in {f_in}, in {'+'.join(map(str, widths))} -> {c2out} channels, "
+            f"[{BLOCK_BATCH}, ., {BLOCK_FRAMES}] bf16; max abs err {err:.3e}, stats "
+            f"{err_stats:.2e} of lane max; kernel {row['ms']:.4f} ms "
+            f"({row['gflop'] / row['ms']:.1f} TFLOP/s), with stats {row['ms_stats']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, cuDNN bf16 conv alone {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del inputs, kernel, plain, library, y, st, y_p, st_p
+    for name, f_in, widths, c2out in (("enc0", 256, (2,), 16), ("dec5", 128, (16, 16), 2)):
+        inputs = block_inputs(dev, gen, name, 1, f_in, widths, c2out, 100)
+        kernel, plain, _ = block_calls(name, f_in, widths, c2out, *inputs)
+        (y, st), (y_p, st_p) = kernel(with_stats=True), plain(with_stats=True)
+        err, err_stats = block_close(y, y_p), stats_err(st, st_p)
+        if err == float("inf") or err_stats > STATS_RTOL:
+            fail(f"{name} at B = 1, T = 100 disagrees with plain: y {err}, stats {err_stats}")
+        log(f"block {name} at B = 1, T = 100 (ragged frame tile): max abs err {err:.3e}, "
+            f"stats {err_stats:.2e} of lane max")
+
+    entries = {}
+    for kind, name, source, replaces in (
+            ("enc", "conv_block", "speech_enhancement_torch/kernels/csrc/conv_block.cu",
+             "speech_enhancement_tpu/ops/pallas/experimental/conv_block.py:444"),
+            ("dec", "deconv_block", "speech_enhancement_torch/kernels/csrc/deconv_block.cu",
+             "speech_enhancement_tpu/ops/pallas/experimental/conv_block.py:505")):
+        mine = [r for r in rows if r["block"].startswith(kind)]
+        total = {key: sum(r[key] for r in mine) for key in
+                 ("ms", "ms_stats", "plain_ms", "library_ms", "bound_ms")}
+        by_ops = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        entries[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": f"the six {kind}oder blocks of configs/dccrn_vbd.yaml at B = "
+                     f"{BLOCK_BATCH}, T = {BLOCK_FRAMES}, bf16; times summed over the six",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "tolerance": f"|dy| <= {BLOCK_RTOL:g}|y_plain| + {BLOCK_ATOL:g}; stats "
+                         f"{STATS_RTOL:g} of lane max",
+            **total,
+            "bound_by": "operations" if by_ops > total["bound_ms"] / 2 else "bytes",
+            "blocks": mine,
+        }
+        log(f"kernel {name}: six blocks sum kernel {total['ms']:.3f} ms (with stats "
+            f"{total['ms_stats']:.3f}), plain {total['plain_ms']:.3f} ms, cuDNN bf16 conv "
+            f"alone {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
+    return entries
+
+
+def reference_phase(dev) -> dict:
     """Small f32 DCCRN on the card (kernels on) vs the same weights on the
-    CPU (plain versions), which the CPU tests hold against the JAX package."""
-    cfg = Config({"name": "dccrn", "kernel_num": [16, 32, 64], "rnn_units": 64,
-                  "dtype": "float32"})
-    gen = torch.Generator().manual_seed(SEED)
-    card, _ = build_model(cfg, device=dev, generator=gen)
-    cpu, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    CPU (plain versions), which the CPU tests hold against the JAX package;
+    unfused, then with ``use_fused_blocks`` (three launches of each block
+    kernel)."""
     wav = utterance(np.random.default_rng(SEED), 8000)[:, 0] * 0.5
-    with torch.inference_mode():
-        got = card(torch.from_numpy(wav).to(dev)).cpu()
-        want = cpu(torch.from_numpy(wav))
-    err = (got - want).abs().max().item()
-    if not torch.isfinite(got).all() or err > F32_ATOL:
-        fail(f"small f32 DCCRN on the card vs CPU: max abs err {err} > {F32_ATOL}")
-    log(f"reference: small f32 DCCRN card vs CPU max abs err {err:.3e} (atol {F32_ATOL})")
-    return err
+    errors = {}
+    for fused in (False, True):
+        cfg = Config({"name": "dccrn", "kernel_num": [16, 32, 64], "rnn_units": 64,
+                      "dtype": "float32", "use_fused_blocks": fused})
+        card, _ = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        cpu, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+        reset_launches()
+        with torch.inference_mode():
+            got = card(torch.from_numpy(wav).to(dev)).cpu()
+            want = cpu(torch.from_numpy(wav))
+        launches = read_launches()
+        blocks = (launches["conv_block"], launches["deconv_block"])
+        err = (got - want).abs().max().item()
+        tag = "fused" if fused else "unfused"
+        if not torch.isfinite(got).all() or err > F32_ATOL:
+            fail(f"small f32 {tag} DCCRN on the card vs CPU: max abs err {err} > {F32_ATOL}")
+        if blocks != ((3, 3) if fused else (0, 0)):
+            fail(f"small f32 {tag} DCCRN launched the block kernels {blocks} times")
+        log(f"reference: small f32 {tag} DCCRN card vs CPU max abs err {err:.3e} "
+            f"(atol {F32_ATOL}); block kernel launches {blocks}")
+        errors[tag] = err
+    return errors
 
 
-def slice_phase(dev) -> dict:
+def load_model(dev, **overrides):
+    """configs/dccrn_vbd.yaml at full width with ``overrides`` on its model
+    section, random weights from the config's seed (the same for every
+    override)."""
     cfg = load_config(CONFIG)
+    for key, value in overrides.items():
+        setattr(cfg.model, key, value)
     gen = torch.Generator().manual_seed(int(cfg.seed))
     model, spec = build_model(cfg.model, device=dev, generator=gen)
-    n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(SEED)
-    n = int(SECONDS * cfg.dset.sample_rate)
-    requests = [utterance(rng, n) for _ in range(N_REQUESTS)]
+    return cfg, model, spec
 
-    def serve():
-        outs, times = [], []
-        for mixture in requests:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs.append(evaluate_utterance(mixture, model, spec, cfg, device=dev))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return outs, times
 
-    torch.cuda.reset_peak_memory_stats()
-    stft_kernel.launches = 0
-    mask_e_kernel.launches = 0
-    outs, times = serve()
-    launches = {"stft": stft_kernel.launches, "mask_e": mask_e_kernel.launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if min(launches.values()) == 0:
-        fail(f"the main path did not launch every kernel: {launches}")
-    for out in outs:
-        if out.shape != (1, 1, n) or not np.isfinite(out).all():
-            fail(f"bad output: shape {out.shape}, finite {np.isfinite(out).all()}")
+def serve(model, spec, cfg, requests, dev):
+    """Each request through evaluate_utterance; host clock, ending in a sync."""
+    outs, times = [], []
+    for mixture in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(evaluate_utterance(mixture, model, spec, cfg, device=dev))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return outs, times
 
-    model.use_stft_kernel = model.use_mask_kernel = False
-    plain_outs, plain_times = serve()
-    model.use_stft_kernel = model.use_mask_kernel = True
-    if (stft_kernel.launches, mask_e_kernel.launches) != (launches["stft"], launches["mask_e"]):
-        fail("the plain path launched a kernel")
+
+def agree(outs, refs, what: str) -> list:
+    """bf16 agreement: mean error <= 2% and max <= 20% of the reference's RMS."""
     agreement = []
-    for out, ref in zip(outs, plain_outs):
+    for out, ref in zip(outs, refs):
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            fail(f"{what}: bad output, shape {out.shape}, finite {np.isfinite(out).all()}")
         rms = float(np.sqrt(np.mean(ref**2)))
         err = np.abs(out - ref)
         agreement.append({"rms": rms, "mean_err": float(err.mean()),
                           "max_err": float(err.max())})
         if err.mean() > BF16_MEAN_FRAC * rms or err.max() > BF16_MAX_FRAC * rms:
-            fail(f"kernel path vs plain path: {agreement[-1]}")
+            fail(f"{what}: {agreement[-1]}")
+    return agreement
 
-    stages = stage_split(model, cfg, requests[0], dev)
-    warm = times[1:]
-    ms = 1e3 * statistics.mean(warm)
+
+def reset_launches() -> None:
+    for wrapper in (stft_kernel, mask_e_kernel, fused_conv_block, fused_deconv_block):
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {"stft": stft_kernel.launches, "mask_e": mask_e_kernel.launches,
+            "conv_block": fused_conv_block.launches,
+            "deconv_block": fused_deconv_block.launches}
+
+
+def slice_result(tag, model, cfg, requests, times, peak_gib, launches, stages) -> dict:
+    n_params = sum(p.numel() for p in model.parameters())
+    ms = 1e3 * statistics.mean(times[1:])
     result = {
-        "config": "configs/dccrn_vbd.yaml", "params": n_params, "requests": N_REQUESTS,
+        "config": "configs/dccrn_vbd.yaml", "params": n_params, "requests": len(requests),
         "audio_s": SECONDS, "windows_per_request": stages["windows"],
-        "request_ms": [1e3 * t for t in times], "plain_request_ms": [1e3 * t for t in plain_times],
+        "request_ms": [1e3 * t for t in times],
         "ms_per_request": ms, "utt_per_s": 1e3 / ms, "rtf": ms / 1e3 / SECONDS,
-        "peak_mem_gib": peak_gib, "launches": launches, "agreement": agreement,
+        "peak_mem_gib": peak_gib, "launches": launches,
         "stage_ms": stages["ms"], "device_busy_ms": stages["device_busy_ms"],
         "device_busy_share": stages["device_busy_share"], "top_kernels": stages["top_kernels"],
     }
-    log(f"slice: DCCRN {n_params} params (bf16 compute), {N_REQUESTS} requests of "
+    log(f"{tag}: DCCRN {n_params} params (bf16 compute), {len(requests)} requests of "
         f"{SECONDS:g} s = {stages['windows']} windows each; request ms "
         f"{[round(x, 1) for x in result['request_ms']]} (first includes warm-up); "
         f"warm {ms:.1f} ms/request = {result['utt_per_s']:.2f} utt/s, RTF {result['rtf']:.4f}; "
         f"peak {peak_gib:.2f} GiB; launches {launches}")
-    log(f"slice: plain path request ms {[round(x, 1) for x in result['plain_request_ms']]}; "
-        f"kernel vs plain {agreement}")
-    log("slice: stage ms of one request's model call: "
+    log_stages(tag, stages)
+    return result
+
+
+def log_stages(tag: str, stages: dict) -> None:
+    log(f"{tag}: stage ms of one request's model call: "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages["ms"].items()))
     share = stages["device_busy_share"]
-    log(f"slice: device busy {stages['device_busy_ms']:.2f} ms of the model call "
+    log(f"{tag}: device busy {stages['device_busy_ms']:.2f} ms of the model call "
         f"({'not measured' if share is None else f'{share:.3f}'}); top kernels "
         + "; ".join(f"{t['kernel']} {t['ms']:.2f} ms x{t['count']}"
                     for t in stages["top_kernels"]))
+
+
+def slice_phase(dev):
+    """The unfused path (STFT and mask-E kernels) and its plain twin.
+    Returns (result, the kernel path's outputs, the requests)."""
+    cfg, model, spec = load_model(dev)
+    rng = np.random.default_rng(SEED)
+    n = int(SECONDS * cfg.dset.sample_rate)
+    requests = [utterance(rng, n) for _ in range(N_REQUESTS)]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs, times = serve(model, spec, cfg, requests, dev)
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if min(launches["stft"], launches["mask_e"]) == 0:
+        fail(f"the main path did not launch every kernel: {launches}")
+    if launches["conv_block"] or launches["deconv_block"]:
+        fail(f"the unfused path launched a block kernel: {launches}")
+
+    model.use_stft_kernel = model.use_mask_kernel = False
+    plain_outs, plain_times = serve(model, spec, cfg, requests, dev)
+    model.use_stft_kernel = model.use_mask_kernel = True
+    if read_launches() != launches:
+        fail("the plain path launched a kernel")
+    agreement = agree(outs, plain_outs, "kernel path vs plain path")
+
+    stages = stage_split(model, cfg, requests[0], dev)
+    result = slice_result("slice", model, cfg, requests, times, peak_gib, launches, stages)
+    result["plain_request_ms"] = [1e3 * t for t in plain_times]
+    result["agreement"] = agreement
+    log(f"slice: plain path request ms {[round(x, 1) for x in result['plain_request_ms']]}; "
+        f"kernel vs plain {agreement}")
+    return result, outs, requests
+
+
+def fused_slice_phase(dev, unfused_outs, requests) -> dict:
+    """``use_fused_blocks = True``: the same requests and weights through all
+    four kernels, held against the unfused kernel path's outputs; then the
+    stage split of the unfused model with ``cbn_fold = True``."""
+    cfg, model, spec = load_model(dev, use_fused_blocks=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs, times = serve(model, spec, cfg, requests, dev)
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"stft": N_REQUESTS, "mask_e": N_REQUESTS, "conv_block": 6 * N_REQUESTS,
+            "deconv_block": 6 * N_REQUESTS}
+    if launches != want:
+        fail(f"the fused path's launches {launches}, want {want}")
+    agreement = agree(outs, unfused_outs, "fused path vs unfused kernel path")
+    stages = stage_split(model, cfg, requests[0], dev)
+    result = slice_result("fused", model, cfg, requests, times, peak_gib, launches, stages)
+    result["agreement_with_unfused"] = agreement
+    log(f"fused: vs the unfused kernel path {agreement}")
+    del model
+
+    cfg, model, _ = load_model(dev, cbn_fold=True)
+    fold = stage_split(model, cfg, requests[0], dev)
+    log_stages("cbn_fold", fold)
+    result["cbn_fold_stage_ms"] = fold["ms"]
     return result
 
 
@@ -358,10 +628,15 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     kernels = kernel_phase(dev)
+    kernels.update(block_kernel_phase(dev, load_config(CONFIG).model.kernel_num))
     reference_phase(dev)
-    slice_result = slice_phase(dev)
+    unfused, outs, requests = slice_phase(dev)
+    fused = fused_slice_phase(dev, outs, requests)
+    # each kernel's launches on the path that is its own: the unfused path
+    # for the STFT and mask E, the fused path for the block kernels
     for name, entry in kernels.items():
-        entry["launches"] = slice_result["launches"][name]
+        source = fused if name in ("conv_block", "deconv_block") else unfused
+        entry["launches"] = source["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

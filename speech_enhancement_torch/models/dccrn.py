@@ -24,6 +24,13 @@ kernel for a CUDA tensor and run the plain version for a CPU tensor; False
 runs the plain framing + matmul / plain mask formula everywhere, the
 counterpart of the JAX ``use_pallas_*=False``.
 
+``use_fused_blocks=True`` (default False, as in the JAX package) runs the
+encoder and decoder as the fused block kernels of kernels/conv_block.py:
+activations flow as [B, F * 2C, T], each block is one launch that applies
+the previous block's folded complex BN and PReLU to its input while it
+reads it, and the decoder's skip join is never stored. The parameters are
+the same either way.
+
 Precision policy (``dtype="bfloat16"``): convs and LSTM in bf16, complex
 BN statistics in f32, mask head and synthesis in f32. Parameters stay f32.
 
@@ -36,17 +43,22 @@ both sides map weights one to one.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_deconv_block,
+                                                         identity_coeffs, pointwise)
 from speech_enhancement_torch.kernels.masking import mask_e_kernel
 from speech_enhancement_torch.kernels.stft import stft_kernel
 from speech_enhancement_torch.models.types import WAV_MONO, SignalSpec
-from speech_enhancement_torch.ops.complex_ops import ComplexBatchNorm
+from speech_enhancement_torch.ops.complex_conv import (complex_cat, complex_conv, complex_deconv,
+                                                       conv_block_kernel, deconv_block_kernel,
+                                                       hwio_from_conv, hwio_from_deconv)
+from speech_enhancement_torch.ops.complex_ops import ComplexBatchNorm, stats_from_partials
 from speech_enhancement_torch.ops.frame import frame_signal, overlap_add
 from speech_enhancement_torch.ops.rnn import ComplexLSTM, lecun_normal
 
@@ -156,14 +168,15 @@ class _ComplexConvBlock(nn.Sequential):
         )
         self.dtype = dtype
 
+    def block_kernel(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        conv = self[0]
+        kernel = conv_block_kernel(conv.real_conv.weight, conv.imag_conv.weight)
+        return kernel, torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
+
     def forward(self, x2: torch.Tensor) -> torch.Tensor:
-        conv, cbn, prelu = self
-        wr, wi = conv.real_conv.weight, conv.imag_conv.weight
-        kernel = torch.cat([torch.cat([wr, -wi], 1), torch.cat([wi, wr], 1)], 0)
-        bias = torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
-        x2 = F.pad(x2.to(self.dtype), (1, 0, 2, 2))  # time (1, 0), freq (2, 2)
-        y2 = F.conv2d(x2, kernel.to(self.dtype), bias.to(self.dtype), stride=(2, 1))
-        return _cbn_prelu(cbn, prelu, y2)
+        kernel, bias = self.block_kernel()
+        y2 = complex_conv(x2.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype))
+        return _cbn_prelu(self[1], self[2], y2)
 
 
 class _ComplexDeconvBlock(nn.Sequential):
@@ -183,23 +196,30 @@ class _ComplexDeconvBlock(nn.Sequential):
         self.dtype = dtype
         self.last = last
 
-    def forward(self, x2: torch.Tensor, skip2: torch.Tensor) -> torch.Tensor:
+    def block_kernel(self) -> Tuple[torch.Tensor, torch.Tensor]:
         conv = self[0]
-        wr, wi = conv.real_conv.weight, conv.imag_conv.weight
-        kernel = torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0)
-        bias = torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
-        xr, xi = _split(x2.to(self.dtype))
-        sr, si = _split(skip2.to(self.dtype))
-        joined = torch.cat([xr, sr, xi, si], dim=1)
-        # torch's padding=(2, 0), output_padding=(1, 0) is the VALID
-        # transpose cropped to rows [2:-1]; the time axis grows by one and
-        # loses its first frame (the reference's chomp)
-        y2 = F.conv_transpose2d(joined, kernel.to(self.dtype), bias.to(self.dtype),
-                                stride=(2, 1), padding=(2, 0), output_padding=(1, 0))
-        y2 = y2[..., 1:]
+        kernel = deconv_block_kernel(conv.real_conv.weight, conv.imag_conv.weight)
+        return kernel, torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
+
+    def forward(self, x2: torch.Tensor, skip2: torch.Tensor) -> torch.Tensor:
+        kernel, bias = self.block_kernel()
+        joined = complex_cat(x2.to(self.dtype), skip2.to(self.dtype))
+        y2 = complex_deconv(joined, kernel.to(self.dtype), bias.to(self.dtype))
         if self.last:
             return y2
         return _cbn_prelu(self[1], self[2], y2)
+
+
+class _FusedSkip(NamedTuple):
+    """A fused encoder block's raw conv output [B, f * c2, T] and the
+    pointwise still to apply to it: folded complex-BN coefficients and the
+    PReLU slope."""
+
+    y: torch.Tensor
+    f: int
+    c2: int
+    coef: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    alpha: torch.Tensor
 
 
 class DCCRN(nn.Module):
@@ -228,10 +248,10 @@ class DCCRN(nn.Module):
             raise NotImplementedError(
                 "DCCRN use_clstm=False (real LSTM + transform) is not ported yet; "
                 "the port's DCCRN runs the complex LSTM")
-        if use_fused_blocks:
-            raise NotImplementedError(
-                "DCCRN use_fused_blocks is ported in the next slice (the fused "
-                "conv-block kernels, ops/pallas/experimental/conv_block.py)")
+        if not isinstance(use_fused_blocks, bool):
+            raise ValueError(
+                f"use_fused_blocks takes True or False, got {use_fused_blocks!r} (the "
+                "kernel wrappers already pick the kernel or its plain version by device)")
         if masking_mode not in ("E", "C", "R"):
             raise ValueError(f"unknown masking_mode {masking_mode!r}")
         if dtype not in _DTYPES:
@@ -242,6 +262,7 @@ class DCCRN(nn.Module):
         self.masking_mode = masking_mode
         self.use_stft_kernel = use_stft_kernel
         self.use_mask_kernel = use_mask_kernel
+        self.use_fused_blocks = use_fused_blocks
         self.compute_dtype = _DTYPES[dtype]
 
         fwd, inv, window = _stft_bases(win_len, fft_len)
@@ -284,8 +305,14 @@ class DCCRN(nn.Module):
         n_freq = self.fft_len // 2 + 1
         return specs[:, :n_freq].contiguous(), specs[:, n_freq:].contiguous()
 
-    def encode(self, real: torch.Tensor, imag: torch.Tensor) -> List[torch.Tensor]:
-        """Spectra -> every encoder block's output (the last is the trunk)."""
+    def encode(self, real: torch.Tensor, imag: torch.Tensor) -> List:
+        """Spectra -> every encoder block's output (the last is the trunk).
+
+        With ``use_fused_blocks`` each output is a :class:`_FusedSkip`: the
+        block's raw conv output and the pointwise still to apply to it.
+        """
+        if self.use_fused_blocks:
+            return self._encode_fused(real, imag)
         x2 = torch.stack([real[:, 1:], imag[:, 1:]], dim=1)  # DC bin dropped
         skips = []
         for block in self.encoder:
@@ -293,8 +320,11 @@ class DCCRN(nn.Module):
             skips.append(x2)
         return skips
 
-    def recur(self, x2: torch.Tensor) -> torch.Tensor:
-        """Complex LSTM bottleneck on [B, 2C, D, T] -> same shape."""
+    def recur(self, x2) -> torch.Tensor:
+        """Complex LSTM bottleneck on [B, 2C, D, T] -> same shape (fused:
+        the last :class:`_FusedSkip` -> [B, D * 2C, T])."""
+        if self.use_fused_blocks:
+            return self._recur_fused(x2)
         batch, channels2, dims, frames = x2.shape
         channels = channels2 // 2
         xr, xi = _split(x2)
@@ -307,15 +337,90 @@ class DCCRN(nn.Module):
         xi = i_in.reshape(batch, frames, channels, dims).permute(0, 2, 3, 1)
         return torch.cat([xr, xi], dim=1)
 
-    def decode(self, x2: torch.Tensor, skips: List[torch.Tensor]
+    def decode(self, x2: torch.Tensor, skips: List
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Trunk + skips -> (mask_real, mask_imag) [B, F, T] in f32, DC bin back."""
+        if self.use_fused_blocks:
+            return self._decode_fused(x2, skips)
         for idx, block in enumerate(self.decoder):
             x2 = block(x2, skips[len(skips) - 1 - idx])
         x2 = x2.float()  # mask head and synthesis in f32
         mask_real = F.pad(x2[:, 0], (0, 0, 1, 0))
         mask_imag = F.pad(x2[:, 1], (0, 0, 1, 0))
         return mask_real, mask_imag
+
+    # -- use_fused_blocks: the JAX package's _fused_encoder_decoder ----------
+    # Activations flow as [B, F * C2, T] (channels stacked [r..., i...] per
+    # frequency row). Each block is one kernel launch that applies the
+    # previous block's folded complex BN and PReLU while it reads its input;
+    # in train() mode the kernels also return per-row sums, whose batch
+    # moments update the running statistics.
+    def _encode_fused(self, real: torch.Tensor, imag: torch.Tensor) -> List["_FusedSkip"]:
+        batch, _, n_time = real.shape
+        f = self.fft_len // 2  # DC bin dropped
+        x = torch.stack([real[:, 1:], imag[:, 1:]], dim=2)  # [B, F, 2, T]
+        x = x.reshape(batch, f * 2, n_time).to(self.compute_dtype)
+        coef, alpha, c2in = identity_coeffs(2, x.device), torch.ones(1, device=x.device), 2
+        outs = []
+        for block in self.encoder:
+            kernel, bias = block.block_kernel()
+            cbn, prelu = block[1], block[2]
+            c2out = bias.shape[0]
+            args = (x, hwio_from_conv(kernel), bias, *coef, alpha)
+            shapes = dict(f_in=f, c2in=c2in, c2out=c2out)
+            stats = None
+            if self.training:
+                y, partials = fused_conv_block(*args, **shapes, with_stats=True)
+                stats = stats_from_partials(partials, c2out, batch * (f // 2) * n_time)
+                cbn._update(stats)
+            else:
+                y = fused_conv_block(*args, **shapes)
+            coef, alpha = cbn.fold_coeffs(stats), prelu.weight
+            x, f, c2in = y, f // 2, c2out
+            outs.append(_FusedSkip(y, f, c2out, coef, alpha))
+        return outs
+
+    def _recur_fused(self, last: "_FusedSkip") -> torch.Tensor:
+        batch, _, n_time = last.y.shape
+        c = last.c2 // 2
+        z = pointwise(last.y.view(batch, last.f, last.c2, n_time), *last.coef, last.alpha)
+        # [B, F, C, T] -> [B, T, C*F] (C outer, F inner: the reference order)
+        r_in = z[:, :, :c].permute(0, 3, 2, 1).reshape(batch, n_time, c * last.f)
+        i_in = z[:, :, c:].permute(0, 3, 2, 1).reshape(batch, n_time, c * last.f)
+        for layer in self.enhance:
+            r_in, i_in = layer(r_in, i_in)
+        r = r_in.reshape(batch, n_time, c, last.f).permute(0, 3, 2, 1)
+        i = i_in.reshape(batch, n_time, c, last.f).permute(0, 3, 2, 1)
+        x = torch.cat([r, i], dim=2)  # [B, F, 2C, T]
+        return x.reshape(batch, last.f * last.c2, n_time).to(self.compute_dtype)
+
+    def _decode_fused(self, x: torch.Tensor, skips: List["_FusedSkip"]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        batch, _, n_time = x.shape
+        f, c2x = skips[-1].f, skips[-1].c2
+        # the LSTM output has no pointwise pending
+        coef, alpha = identity_coeffs(c2x, x.device), torch.ones(1, device=x.device)
+        for idx, block in enumerate(self.decoder):
+            # skip k is encoder block 5-k's raw conv output; the kernel
+            # applies that block's pointwise as it reads it
+            skip = skips[len(skips) - 1 - idx]
+            kernel, bias = block.block_kernel()
+            c2out = bias.shape[0]
+            args = (x, skip.y, hwio_from_deconv(kernel), bias, coef, alpha, skip.coef,
+                    skip.alpha)
+            shapes = dict(f_in=f, c2x=c2x, c2s=skip.c2, c2out=c2out)
+            stats = None
+            if self.training and not block.last:
+                y, partials = fused_deconv_block(*args, **shapes, with_stats=True)
+                stats = stats_from_partials(partials, c2out, batch * 2 * f * n_time)
+                block[1]._update(stats)
+            else:
+                y = fused_deconv_block(*args, **shapes)
+            if not block.last:
+                coef, alpha = block[1].fold_coeffs(stats), block[2].weight
+            x, f, c2x = y, 2 * f, c2out
+        y = x.float().reshape(batch, f, 2, n_time)  # mask head and synthesis in f32
+        return F.pad(y[:, :, 0], (0, 0, 1, 0)), F.pad(y[:, :, 1], (0, 0, 1, 0))
 
     def apply_mask(self, real, imag, mask_real, mask_imag) -> torch.Tensor:
         """Masking modes E / C / R -> masked spectrum [B, 2F, T]."""

@@ -16,7 +16,7 @@ applies per-channel coefficients in the input dtype.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,12 +52,11 @@ class ComplexBatchNorm(nn.Module):
         self.register_buffer("RVri", torch.zeros(channels))
         self.register_buffer("RVii", torch.full((channels,), rt2))
 
-    def _update(self, stats) -> None:
+    def _update(self, stats: Dict[str, torch.Tensor]) -> None:
         m = self.momentum
         with torch.no_grad():
-            for buf, value in zip((self.RMr, self.RMi, self.RVrr, self.RVii, self.RVri),
-                                  stats):
-                buf.mul_(m).add_((1 - m) * value)
+            for key, buf in self.running_stats().items():
+                buf.mul_(m).add_((1 - m) * stats[key])
 
     def _whitening(self, vrr, vii, vri):
         vrr = vrr + self.eps
@@ -83,7 +82,8 @@ class ComplexBatchNorm(nn.Module):
             vrr = (cr * cr).mean(dim=reduce_dims)
             vii = (ci * ci).mean(dim=reduce_dims)
             vri = (cr * ci).mean(dim=reduce_dims)
-            self._update((mean_r, mean_i, vrr, vii, vri))
+            self._update({"mean_r": mean_r, "mean_i": mean_i, "vrr": vrr,
+                          "vii": vii, "vri": vri})
         else:
             vrr, vii, vri = self.RVrr, self.RVii, self.RVri
             cr = fr - self.RMr.view(bshape)
@@ -95,34 +95,75 @@ class ComplexBatchNorm(nn.Module):
         zi = self.Wri.view(bshape) * yr + self.Wii.view(bshape) * yi + self.Bi.view(bshape)
         return zr.to(xr.dtype), zi.to(xi.dtype)
 
+    def running_stats(self) -> Dict[str, torch.Tensor]:
+        return {"mean_r": self.RMr, "mean_i": self.RMi, "vrr": self.RVrr,
+                "vii": self.RVii, "vri": self.RVri}
+
+    def fold_coeffs(self, stats: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Whitening and affine folded into stacked per-channel coefficients.
+
+        Returns f32 ``(a_diag, a_cross, c0)`` over ``[r..., i...]`` channels
+        such that ``z[ch] = a_diag[ch]*x[ch] + a_cross[ch]*x[partner] + c0[ch]``
+        (the partner of a channel is its complex counterpart, ch +- C), from
+        ``stats`` (keys of :func:`stats_from_partials`) or, by default, the
+        running statistics. Counterpart of the JAX package's
+        ``ops/pallas/experimental/conv_block.py:fold_cbn_coeffs``.
+        """
+        stats = self.running_stats() if stats is None else stats
+        wrr, wii, wri = self._whitening(stats["vrr"], stats["vii"], stats["vri"])
+        arr = self.Wrr * wrr + self.Wri * wri
+        ari = self.Wrr * wri + self.Wri * wii
+        air = self.Wri * wrr + self.Wii * wri
+        aii = self.Wri * wri + self.Wii * wii
+        cr0 = self.Br - (arr * stats["mean_r"] + ari * stats["mean_i"])
+        ci0 = self.Bi - (air * stats["mean_r"] + aii * stats["mean_i"])
+        return torch.cat([arr, aii]), torch.cat([ari, air]), torch.cat([cr0, ci0])
+
     def _folded(self, xr: torch.Tensor, xi: torch.Tensor) -> ComplexPair:
         reduce_dims = [d for d in range(xr.dim()) if d != 1]
         bshape = (1, -1) + (1,) * (xr.dim() - 2)
+        stats = None
         if self.training:
             fr = xr.float()
             fi = xi.float()
             mean_r = fr.mean(dim=reduce_dims)
             mean_i = fi.mean(dim=reduce_dims)
-            vrr = torch.clamp((fr * fr).mean(dim=reduce_dims) - mean_r * mean_r, min=0.0)
-            vii = torch.clamp((fi * fi).mean(dim=reduce_dims) - mean_i * mean_i, min=0.0)
-            vri = (fr * fi).mean(dim=reduce_dims) - mean_r * mean_i
-            self._update((mean_r, mean_i, vrr, vii, vri))
-        else:
-            mean_r, mean_i = self.RMr, self.RMi
-            vrr, vii, vri = self.RVrr, self.RVii, self.RVri
-        wrr, wii, wri = self._whitening(vrr, vii, vri)
-        # fold affine @ whitening into one per-channel 2x2 (+ offset)
-        arr = self.Wrr * wrr + self.Wri * wri
-        ari = self.Wrr * wri + self.Wri * wii
-        air = self.Wri * wrr + self.Wii * wri
-        aii = self.Wri * wri + self.Wii * wii
-        cr0 = self.Br - (arr * mean_r + ari * mean_i)
-        ci0 = self.Bi - (air * mean_r + aii * mean_i)
-        dt = xr.dtype
-
-        def coef(v):
-            return v.to(dt).view(bshape)
-
-        zr = coef(arr) * xr + coef(ari) * xi + coef(cr0)
-        zi = coef(air) * xr + coef(aii) * xi + coef(ci0)
+            stats = {
+                "mean_r": mean_r, "mean_i": mean_i,
+                "vrr": torch.clamp((fr * fr).mean(dim=reduce_dims) - mean_r * mean_r, min=0.0),
+                "vii": torch.clamp((fi * fi).mean(dim=reduce_dims) - mean_i * mean_i, min=0.0),
+                "vri": (fr * fi).mean(dim=reduce_dims) - mean_r * mean_i,
+            }
+            self._update(stats)
+        a_diag, a_cross, c0 = (v.to(xr.dtype) for v in self.fold_coeffs(stats))
+        c = a_diag.shape[0] // 2
+        arr, aii, ari, air, cr0, ci0 = (v.view(bshape) for v in (
+            a_diag[:c], a_diag[c:], a_cross[:c], a_cross[c:], c0[:c], c0[c:]))
+        zr = arr * xr + ari * xi + cr0
+        zi = air * xr + aii * xi + ci0
         return zr, zi
+
+
+def stats_from_partials(partials: torch.Tensor, c2out: int,
+                        n_per_channel: int) -> Dict[str, torch.Tensor]:
+    """[B, R_out, 8] per-row partial sums -> complex-BN batch statistics.
+
+    Lanes 0..2 of each output row hold sum(y), sum(y^2) and sum(y*partner)
+    over time (``kernels/conv_block.py``); ``n_per_channel`` = B * F_out * T.
+    One-pass ``E[y^2] - E[y]^2`` moments clamped at 0, as the folded path
+    above; the cross moment is read from the r-half rows. Counterpart of
+    ``ops/pallas/experimental/conv_block.py:stats_from_partials``.
+    """
+    total = partials.float().sum(dim=0)  # [R, 8]
+    per = total.reshape(-1, c2out, 8).sum(dim=0)  # [c2out, 8]
+    c = c2out // 2
+    inv_n = 1.0 / float(n_per_channel)
+    mean_r = per[:c, 0] * inv_n
+    mean_i = per[c:, 0] * inv_n
+    return {
+        "mean_r": mean_r, "mean_i": mean_i,
+        "vrr": torch.clamp(per[:c, 1] * inv_n - mean_r * mean_r, min=0.0),
+        "vii": torch.clamp(per[c:, 1] * inv_n - mean_i * mean_i, min=0.0),
+        "vri": per[:c, 2] * inv_n - mean_r * mean_i,
+    }

@@ -232,6 +232,87 @@ def test_dccrn_bf16_close_to_jax_bf16(rng):
     assert err.max() < 0.1 * rms, (err.max(), rms)
 
 
+# the small config of tests/test_dccrn_fused.py:17-21
+FUSED_SMALL = dict(win_len=128, win_inc=32, fft_len=256, kernel_num=(4, 8, 8, 16, 16, 16),
+                   rnn_layers=2, rnn_units=16)
+
+
+@pytest.fixture(scope="module")
+def fused_pair():
+    """JAX DCCRN with the fused Pallas blocks forced (interpret mode), its
+    perturbed variables, the port's fused DCCRN with the same weights, and
+    the waveform."""
+    jax_model = jax_dccrn.DCCRN(use_fused_blocks="force", use_pallas_stft=False,
+                                use_pallas_mask=False, **FUSED_SMALL)
+    wav = (0.1 * np.random.default_rng(3).standard_normal((2, 1, 1600))).astype(np.float32)
+    variables = jax_variables(jax_model, jnp.asarray(wav))
+    port = port_dccrn.DCCRN(use_fused_blocks=True, **FUSED_SMALL)
+    port.load_state_dict(dccrn_state_from_jax(variables["params"], variables["batch_stats"]))
+    return jax_model, variables, port, wav
+
+
+def test_fused_param_tree_is_the_unfused_one():
+    """dccrn_state_from_jax serves the fused path as it is: the JAX tree is
+    the same with the flag on or off, and so is the port's state_dict."""
+    wav = jnp.zeros((1, 1, 1600), jnp.float32)
+    trees = [jax.eval_shape(jax_dccrn.DCCRN(use_fused_blocks=flag, **FUSED_SMALL).init,
+                            jax.random.PRNGKey(0), wav) for flag in (False, "force")]
+    leaves = [[(jax.tree_util.keystr(p), v.shape)
+               for p, v in jax.tree_util.tree_leaves_with_path(t)] for t in trees]
+    assert leaves[0] == leaves[1]
+    states = [port_dccrn.DCCRN(use_fused_blocks=flag, **FUSED_SMALL).state_dict()
+              for flag in (False, True)]
+    assert [(k, v.shape) for k, v in states[0].items()] == [
+        (k, v.shape) for k, v in states[1].items()]
+
+
+def test_fused_dccrn_matches_jax_fused_eval(fused_pair):
+    jax_model, variables, port, wav = fused_pair
+    want = np.asarray(jax_model.apply(variables, jnp.asarray(wav), train=False))
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(wav)).numpy()
+    assert got.shape == want.shape == wav.shape
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)  # tests/test_dccrn_fused.py:54-55
+
+
+def test_fused_dccrn_matches_jax_fused_train(fused_pair):
+    """train() mode: batch moments from the kernels' stats partials fold
+    into the next block and update the running statistics
+    (tests/test_dccrn_fused.py:58-74)."""
+    jax_model, variables, port, wav = fused_pair
+    want, updated = jax_model.apply(variables, jnp.asarray(wav), train=True,
+                                    mutable=["batch_stats"])
+    port = port_dccrn.DCCRN(use_fused_blocks=True, **FUSED_SMALL)
+    port.load_state_dict(dccrn_state_from_jax(variables["params"], variables["batch_stats"]))
+    got = port.train()(torch.from_numpy(wav))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-3, atol=1e-4)
+    stats_want = dccrn_state_from_jax(variables["params"], updated["batch_stats"])
+    stats_got = port.state_dict()
+    keys = [k for k in stats_want if k.split(".")[-1] in ("RMr", "RMi", "RVrr", "RVri", "RVii")]
+    assert len(keys) == 5 * (6 + 5)  # every block with complex BN updated its stats
+    for key in keys:
+        np.testing.assert_allclose(stats_got[key].numpy(), stats_want[key].numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=key)
+    assert got.requires_grad  # the plain versions stay differentiable on the CPU
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_fused_dccrn_matches_port_unfused(fused_pair, train):
+    _, _, fused, wav = fused_pair
+    unfused = port_dccrn.DCCRN(cbn_fold=train, **FUSED_SMALL)
+    unfused.load_state_dict(fused.state_dict())
+    fused = port_dccrn.DCCRN(use_fused_blocks=True, **FUSED_SMALL)
+    fused.load_state_dict(unfused.state_dict())
+    with torch.no_grad():
+        a = fused.train(train)(torch.from_numpy(wav))
+        b = unfused.train(train)(torch.from_numpy(wav))
+    # the same weights; folded complex BN against the centred one (eval)
+    # or against the folded one of the unfused path (train)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+    for (key, va), vb in zip(fused.state_dict().items(), unfused.state_dict().values()):
+        np.testing.assert_allclose(va.numpy(), vb.numpy(), rtol=1e-4, atol=1e-6, err_msg=key)
+
+
 def test_weight_round_trip_is_exact(rng):
     _, variables, port = small_dccrn_pair(rng)
     state = {k: v.numpy() for k, v in port.state_dict().items()}
@@ -286,8 +367,11 @@ def test_build_model_names_later_slices_and_seeds_weights():
         build_model(Config({"name": "sepformer"}), device="cpu")
     with pytest.raises(ValueError):
         build_model(Config({"name": "no-such-model"}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(Config({"name": "dccrn", "use_fused_blocks": True}), device="cpu")
+    fused, _ = build_model(Config({"name": "dccrn", **SMALL, "use_fused_blocks": True}),
+                           device="cpu")
+    assert fused.use_fused_blocks and not port_dccrn.DCCRN(**SMALL).use_fused_blocks
+    with pytest.raises(ValueError, match="True or False"):  # the JAX "force" has no meaning here
+        build_model(Config({"name": "dccrn", "use_fused_blocks": "force"}), device="cpu")
     cfg = Config({"name": "dccrn", **SMALL})
     a, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     b, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
