@@ -7,21 +7,26 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels from ``speech_enhancement_torch/kernels/
 csrc``, holds each against its plain PyTorch version at the shapes of the
-serving path (the two block kernels at all twelve blocks of the model),
-then serves three 10 s requests with DCCRN at the full width of
-``configs/dccrn_vbd.yaml`` (bf16, random weights from a seeded
-``torch.Generator``) through ``train/evaluate.py:evaluate_utterance``,
-twice: with the default unfused encoder/decoder, which goes through the
-STFT and mask-E kernels, and with ``model.use_fused_blocks = True``, which
-goes through all four kernels; it checks the launches of each run and
-that the two agree. It imports nothing of JAX.
+serving and training paths (the two block kernels and their four backward
+kernels at all twelve blocks of the model), then serves three 10 s requests
+with DCCRN at the full width of ``configs/dccrn_vbd.yaml`` (bf16, random
+weights from a seeded ``torch.Generator``) through
+``train/evaluate.py:evaluate_utterance``, twice: with the default unfused
+encoder/decoder, which goes through the STFT and mask-E kernels, and with
+``model.use_fused_blocks = True``, which goes through the four forward
+kernels; it checks the launches of each run and that the two agree. Then
+it trains the same model at ``bench.py``'s operating point (B = 128, 4 s,
+MSE, Adam 3e-4, clip 5, int16 wire) through ``train/solver.py:train_step``,
+three steps with ``use_fused_blocks = True`` (all eight kernels) and three
+on the unfused ``cbn_fold = True`` path, and holds the two first steps
+against each other. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
-``{"kernels": [...]}`` (per kernel: launches on the main path, max abs error
+``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
 against the plain version, kernel / plain / library times and the least
-time the card could take; for the two block kernels each time is the sum
-over the model's six blocks of that kind, one launch each, and the error
-the largest of the six), and as the last line
+time the card could take; for the block kernels and their backward kernels
+each time is the sum over the model's six blocks of that kind, one launch
+each, and the error the largest of the six), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line is printed; so does a host without CUDA.
 """
@@ -42,16 +47,19 @@ import torch.nn.functional as F
 
 from speech_enhancement_torch.config import Config, load_config
 from speech_enhancement_torch.kernels import _build
+from speech_enhancement_torch.kernels import conv_block as cb
 from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_conv_block_plain,
                                                          fused_deconv_block,
                                                          fused_deconv_block_plain)
-from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain
+from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain, mask_e_ref
 from speech_enhancement_torch.kernels.stft import stft_kernel, stft_plain
 from speech_enhancement_torch.models import build_model
 from speech_enhancement_torch.models.dccrn import _stft_bases
 from speech_enhancement_torch.ops.complex_conv import (complex_cat, conv_from_hwio,
                                                        deconv_from_hwio)
 from speech_enhancement_torch.train.evaluate import evaluate_utterance, extract_windows
+from speech_enhancement_torch.train.solver import (compute_loss, decode_wire, get_optimizer,
+                                                   train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "dccrn_vbd.yaml")
@@ -81,6 +89,25 @@ F32_ATOL = 2e-4                    # small f32 DCCRN, card vs CPU plain path (te
 # atomics across frame tiles): within 1e-3 of each lane's largest magnitude.
 BLOCK_RTOL, BLOCK_ATOL, STATS_RTOL = 2.0**-7, 1e-3, 1e-3
 BLOCK_BATCH, BLOCK_FRAMES = 192, 643  # one request's windows, frames of a 4 s window
+# backward kernels vs their plain versions in bf16, at bench.py's batch: the
+# input gradients round the same f32 sums once (|d| <= 2^-7 |ref| + 1e-3,
+# as the forward blocks). The weight gradients are f32 sums of exact
+# bf16 x bf16 products over B x rows x T (up to 10.5 M terms, enc0), split
+# into K partials summed by torch.sum, against cuDNN's f32 order in the
+# plain version: a sequential f32 sum of random-sign terms rounds by about
+# 2^-24 sqrt(terms / 2) of its size, 1.4e-4 at 10.5 M terms (both sides sum
+# in blocks, which rounds less), so 1e-3 of each block's largest |dW|.
+DW_RTOL = 1e-3
+TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS = 128, 4.0, 3  # bench.py's operating point
+TRAIN_OPTIM = {"optim": "adam", "lr": 3e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+# fused vs unfused (cbn_fold) first train step, bf16 with f32 statistics:
+# two summation orders and roundings at other places
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_MIN_COSINE = 0.01, 0.05, 0.99
+LEAF_RTOL = 2e-3  # small f32 train step, card vs CPU: the JAX package's fused-gradient bound
+# the small config of tests/test_dccrn_fused.py:17-21
+SMALL_FUSED = {"name": "dccrn", "win_len": 128, "win_inc": 32, "fft_len": 256,
+               "kernel_num": [4, 8, 8, 16, 16, 16], "rnn_layers": 2, "rnn_units": 16,
+               "dtype": "float32", "use_fused_blocks": True}
 
 
 def log(msg: str) -> None:
@@ -372,6 +399,340 @@ def block_kernel_phase(dev, kernel_num) -> dict:
     return entries
 
 
+def bwd_calls(name, f_in, widths, c2out, gy, zs, w2):
+    """(input-gradient kernel, its plain version, weight-gradient kernel,
+    its plain version, cuDNN's bf16 input gradient, cuDNN's bf16 weight
+    gradient) of one block. The cuDNN calls are aten.convolution_backward of
+    the unfused path's own bf16 convolution (the library yardstick; the
+    port never calls it), on operands laid out beforehand."""
+    batch, _, n_time = gy.shape
+    nchw = [z.view(batch, f_in, c2, n_time).permute(0, 2, 1, 3) for z, c2 in zip(zs, widths)]
+    if name.startswith("enc"):
+        shapes = dict(f_in=f_in, c2in=widths[0], c2out=c2out)
+        f_out = f_in // 2
+        gz = (functools.partial(cb.enc_bwd_gz, gy, w2, **shapes),
+              functools.partial(cb.enc_bwd_gz_plain, gy, w2, **shapes))
+        dw = (functools.partial(cb.enc_bwd_dw, zs[0], gy, **shapes),
+              functools.partial(cb.enc_bwd_dw_plain, zs[0], gy, **shapes))
+        inp = F.pad(nchw[0], (1, 0, 2, 2)).contiguous()
+        k = conv_from_hwio(w2).to(torch.bfloat16).contiguous()
+        g = gy.view(batch, f_out, c2out, n_time).permute(0, 2, 1, 3).contiguous()
+        conv = ([2, 1], [0, 0], [1, 1], False, [0, 0], 1)
+    else:
+        shapes = dict(f_in=f_in, c2x=widths[0], c2s=widths[1], c2out=c2out)
+        f_out = 2 * f_in
+        gz = (functools.partial(cb.dec_bwd_gz, gy, w2, **shapes),
+              functools.partial(cb.dec_bwd_gz_plain, gy, w2, **shapes))
+        dw = (functools.partial(cb.dec_bwd_dw, zs[0], zs[1], gy, **shapes),
+              functools.partial(cb.dec_bwd_dw_plain, zs[0], zs[1], gy, **shapes))
+        inp = complex_cat(*nchw).contiguous()
+        k = deconv_from_hwio(w2).to(torch.bfloat16).contiguous()
+        # the transposed conv's full output: the chomped first frame gets 0
+        g = F.pad(gy.view(batch, f_out, c2out, n_time).permute(0, 2, 1, 3), (1, 0)).contiguous()
+        conv = ([2, 1], [2, 0], [1, 1], True, [1, 0], 1)
+    lib_gz = functools.partial(torch.ops.aten.convolution_backward, g, inp, k, None, *conv,
+                               [True, False, False])
+    lib_dw = functools.partial(torch.ops.aten.convolution_backward, g, inp, k, None, *conv,
+                               [False, True, False])
+    return gz, dw, lib_gz, lib_dw
+
+
+def bwd_kernel_phase(dev, kernel_num) -> dict:
+    """The four backward kernels vs their plain versions at the twelve
+    full-width blocks (B = 128 windows of bench.py's step, T = 643, bf16).
+    Returns the per-kernel entries of the kernels line: times summed over
+    the six blocks of each kind, the largest error of the six."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    rows = []
+    for name, f_in, widths, c2out in model_blocks(kernel_num):
+        f_out = 2 * f_in if name.startswith("dec") else f_in // 2
+        gy = randn(TRAIN_BATCH, f_out * c2out, BLOCK_FRAMES).to(torch.bfloat16)
+        zs = [randn(TRAIN_BATCH, f_in * c2, BLOCK_FRAMES).to(torch.bfloat16) for c2 in widths]
+        w2 = randn(5, 2, sum(widths), c2out) / float(np.sqrt(10 * sum(widths)))
+        (gz, gz_plain), (dw, dw_plain), lib_gz, lib_dw = bwd_calls(name, f_in, widths, c2out,
+                                                                   gy, zs, w2)
+        got, want = gz(), gz_plain()
+        got, want = (got, want) if isinstance(got, torch.Tensor) else (
+            torch.cat([a.flatten() for a in got]), torch.cat([a.flatten() for a in want]))
+        err_gz = block_close(got, want)
+        got, want = dw(), dw_plain()
+        torch.cuda.synchronize()
+        err_dw = (got - want).abs().max().item()
+        rel_dw = err_dw / want.abs().max().item()
+        if err_gz == float("inf") or not rel_dw <= DW_RTOL:
+            fail(f"{name} backward kernels disagree with plain: g_z {err_gz} (bound |d| <= "
+                 f"{BLOCK_RTOL:g}|ref| + {BLOCK_ATOL:g}), dW {rel_dw} of its max (bound "
+                 f"{DW_RTOL:g})")
+        del got, want
+        flops, _ = block_work(name, TRAIN_BATCH, f_in, widths, c2out, BLOCK_FRAMES)
+        acts = 2.0 * TRAIN_BATCH * BLOCK_FRAMES * (f_in * sum(widths) + f_out * c2out)
+        weights = 10.0 * sum(widths) * c2out
+        for kind, kernel, plain, library, err, nbytes in (
+                ("gz", gz, gz_plain, lib_gz, err_gz, acts + 2 * weights),
+                ("dw", dw, dw_plain, lib_dw, err_dw, acts + 4 * weights)):
+            row = {"block": name, "kind": kind, "f_in": f_in, "widths": widths, "c2out": c2out,
+                   "max_abs_err": err, "rel_err": rel_dw if kind == "dw" else None,
+                   "ms": cuda_ms(kernel, reps=3, warmup=1),
+                   "plain_ms": cuda_ms(plain, reps=2, warmup=1),
+                   "library_ms": cuda_ms(library, reps=3, warmup=1),
+                   "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+                   "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "gflop": flops / 1e9}
+            row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
+            row["bound_by"] = ("operations" if row["flops_bound_ms"] > row["bytes_bound_ms"]
+                               else "bytes")
+            rows.append(row)
+            log(f"bwd {name} {kind}: f_in {f_in}, in {'+'.join(map(str, widths))} -> {c2out} "
+                f"channels, B {TRAIN_BATCH}, T {BLOCK_FRAMES} bf16; max abs err {err:.3e}"
+                + (f" ({rel_dw:.2e} of the largest |dW|)" if kind == "dw" else "") + "; kernel "
+                f"{row['ms']:.4f} ms ({row['gflop'] / row['ms']:.1f} TFLOP/s), plain "
+                f"{row['plain_ms']:.4f} ms, cuDNN bf16 {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del gy, zs, gz, gz_plain, dw, dw_plain, lib_gz, lib_dw
+
+    entries = {}
+    for kind, part, name, source, replaces in (
+            ("enc", "gz", "enc_bwd_gz", "conv_block_bwd.cu", "conv_block.py:725"),
+            ("enc", "dw", "enc_bwd_dw", "conv_block_bwd.cu", "conv_block.py:755"),
+            ("dec", "gz", "dec_bwd_gz", "deconv_block_bwd.cu", "conv_block.py:790"),
+            ("dec", "dw", "dec_bwd_dw", "deconv_block_bwd.cu", "conv_block.py:828")):
+        mine = [r for r in rows if r["block"].startswith(kind) and r["kind"] == part]
+        total = {key: sum(r[key] for r in mine) for key in
+                 ("ms", "plain_ms", "library_ms", "bound_ms", "gflop")}
+        by_ops = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"speech_enhancement_torch/kernels/csrc/{source}",
+            "replaces": f"speech_enhancement_tpu/ops/pallas/experimental/{replaces}",
+            "shape": f"the six {kind}oder blocks of configs/dccrn_vbd.yaml at B = "
+                     f"{TRAIN_BATCH}, T = {BLOCK_FRAMES}, bf16; times summed over the six",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "tolerance": (f"|d| <= {BLOCK_RTOL:g}|ref| + {BLOCK_ATOL:g}" if part == "gz" else
+                          f"{DW_RTOL:g} of each block's largest |dW|"),
+            **total, "tflops": total["gflop"] / total["ms"],
+            "bound_by": "operations" if by_ops > total["bound_ms"] / 2 else "bytes",
+            "blocks": mine,
+        }
+        log(f"kernel {name}: six blocks sum kernel {total['ms']:.3f} ms "
+            f"({entries[name]['tflops']:.1f} TFLOP/s), plain {total['plain_ms']:.3f} ms, cuDNN "
+            f"bf16 {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
+    return entries
+
+
+def grad_phase(dev) -> dict:
+    """The STFT and mask-E kernels under autograd at the train step's shapes
+    (B = 128 windows of 4 s) vs the plain path's gradients: the signal's
+    gradient of the STFT (kernel forward, overlap-add backward) against
+    autograd of the plain framing + matmul, and the mask-E kernel's against
+    autograd of the pole-free formula, with a zero mask in part of the input."""
+    rng = np.random.default_rng(SEED + 2)
+    win, hop = 400, 100
+    total = int(TRAIN_SECONDS * 16000) + 2 * (win - hop)
+    n_frames = (total - win) // hop + 1
+    basis = torch.from_numpy(_stft_bases(win, 512)[0]).to(dev)
+    x = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, total), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n_frames, basis.shape[1]),
+                                             dtype=np.float32)).to(dev)
+    grads = []
+    for fn in (stft_kernel, stft_plain):
+        leaf = x.clone().requires_grad_()
+        fn(leaf, basis, hop, win).backward(g)
+        grads.append(leaf.grad)
+    scale = grads[1].abs().max().item()
+    err_stft = (grads[0] - grads[1]).abs().max().item() / scale
+    shape = (TRAIN_BATCH, 257, n_frames)
+    arrays = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+              for _ in range(4)]
+    arrays[2][:, :8] = 0.0  # the mask is zero on the lowest bins: the pole
+    arrays[3][:, :8] = 0.0
+    cot = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+           for _ in range(2)]
+    mask_grads = []
+    for fn in (mask_e_kernel, mask_e_ref):
+        leaves = [a.clone().requires_grad_() for a in arrays]
+        torch.autograd.backward(fn(*leaves), cot)
+        mask_grads.append([leaf.grad for leaf in leaves])
+    finite = all(bool(torch.isfinite(t).all()) for t in mask_grads[0])
+    err_mask = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(*mask_grads))
+    torch.cuda.synchronize()
+    # the STFT gradient sums win / hop = 4 frames of 514-term f32 products;
+    # the mask's is the same f32 formula: 1e-5 of the largest gradient each
+    if not finite or err_stft > 1e-5 or err_mask > 1e-5:
+        fail(f"kernel gradients disagree with the plain path: STFT {err_stft}, mask E "
+             f"{err_mask} of the largest gradient (bound 1e-5), mask finite {finite}")
+    log(f"grad: STFT kernel path vs plain signal gradient {err_stft:.2e}, mask E kernel path "
+        f"vs pole-free plain {err_mask:.2e} of the largest gradient (bound 1e-5; the mask "
+        f"is zero on 8 of 257 bins, gradients finite)")
+    return {"stft_grad_err": err_stft, "mask_e_grad_err": err_mask}
+
+
+def encode_wire_int16(arr: np.ndarray) -> dict:
+    """f32 [..., L] -> the int16 wire {"q", "scale" [..., 1]}, as the JAX
+    package's data/loader.py:encode_wire_int16 (peak-scaled per row)."""
+    peak = np.max(np.abs(arr), axis=-1, keepdims=True)
+    scale = (np.maximum(peak, 1e-9) / 32767.0).astype(np.float32)
+    return {"q": np.round(arr / scale).astype(np.int16), "scale": scale}
+
+
+def train_batch(sample_rate: int):
+    """bench.py's batch: B = 128 mixtures and targets of 4 s, N(0, 0.1^2),
+    made with numpy from the seed, on the int16 wire."""
+    rng = np.random.default_rng(SEED)
+    n = int(TRAIN_SECONDS * sample_rate)
+    mixture = (0.1 * rng.standard_normal((TRAIN_BATCH, 1, n))).astype(np.float32)
+    target = (0.1 * rng.standard_normal((TRAIN_BATCH, 1, 1, n))).astype(np.float32)
+    return encode_wire_int16(mixture), encode_wire_int16(target)
+
+
+def flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.float().flatten() for p in model.parameters()])
+
+
+def train_path(tag, dev, wire_m, wire_s, **overrides) -> dict:
+    """TRAIN_STEPS steps of train_step at full width; then one step split
+    by CUDA events and one under the profiler."""
+    cfg, model, spec = load_model(dev, **overrides)
+    opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, norms, times, first_grads = [], [], [], None
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, norm = train_step(model, spec, opt, wire_m, wire_s, "mse", device=dev)
+        losses.append(float(loss))  # syncs
+        norms.append(float(norm))
+        times.append(time.perf_counter() - t0)
+        if step == 0:
+            first_grads = flat_grads(model)  # clipped in place if norm > clip: same direction
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses + norms)):
+        fail(f"{tag} train: non-finite loss or grad norm {losses} {norms}")
+    if not all(a > b for a, b in zip(losses, losses[1:])):
+        fail(f"{tag} train: the loss does not fall over {TRAIN_STEPS} steps: {losses}")
+    step_ms = 1e3 * statistics.median(times[1:])
+
+    mixture, sources = decode_wire(wire_m, dev), decode_wire(wire_s, dev)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    opt.zero_grad()
+    out = model(mixture)
+    loss = compute_loss("mse", out, sources[:, 0], mixture)
+    events[1].record()
+    loss.backward()
+    events[2].record()
+    opt.step()
+    events[3].record()
+    torch.cuda.synchronize()
+    split = {name: events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(("forward", "backward", "optimizer"))}
+    busy_ms, top = device_busy(lambda: train_step(model, spec, opt, wire_m, wire_s, "mse",
+                                                  device=dev))
+    result = {"config": "configs/dccrn_vbd.yaml", "overrides": overrides, "batch": TRAIN_BATCH,
+              "seconds": TRAIN_SECONDS, "losses": losses, "grad_norms": norms,
+              "step_ms": [1e3 * t for t in times], "median_step_ms_2_to_3": step_ms,
+              "utt_per_s": TRAIN_BATCH / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+              "launches": launches, "split_ms": split, "device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / step_ms if busy_ms else None, "top_kernels": top}
+    log(f"train {tag}: losses {losses}, grad norms {norms}; step ms "
+        f"{[round(x, 1) for x in result['step_ms']]} (the first warms up), median of steps 2 "
+        f"to {TRAIN_STEPS} {step_ms:.1f} ms = {result['utt_per_s']:.1f} utt/s; peak "
+        f"{peak_gib:.2f} GiB; launches {launches}")
+    share = result["device_busy_share"]
+    log(f"train {tag}: one step by CUDA events: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in split.items()) + f"; device busy {busy_ms:.1f} ms "
+        f"({'not measured' if share is None else f'{share:.3f}'} of the median step); top "
+        "kernels " + "; ".join(f"{t['kernel']} {t['ms']:.2f} ms x{t['count']}" for t in top))
+    return result, first_grads
+
+
+def train_phase(dev) -> dict:
+    """bench.py's train step at full width on both paths, the fused one
+    through all eight kernels, held against each other on the first step."""
+    cfg = load_config(CONFIG)
+    wire_m, wire_s = train_batch(int(cfg.dset.sample_rate))
+    fused, g_fused = train_path("fused", dev, wire_m, wire_s, use_fused_blocks=True)
+    per_step = {"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6,
+                # enc0's input is the spectrogram: no input gradient launched
+                "enc_bwd_gz": 5, "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6}
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if fused["launches"] != want:
+        fail(f"the fused train steps' launches {fused['launches']}, want {want}")
+    unfused, g_unfused = train_path("unfused (cbn_fold)", dev, wire_m, wire_s, cbn_fold=True)
+    want = {k: TRAIN_STEPS * per_step[k] if k in ("stft", "mask_e") else 0 for k in per_step}
+    if unfused["launches"] != want:
+        fail(f"the unfused train steps' launches {unfused['launches']}, want {want}")
+    loss_rel = abs(fused["losses"][0] - unfused["losses"][0]) / abs(unfused["losses"][0])
+    norm_rel = abs(fused["grad_norms"][0] - unfused["grad_norms"][0]) / unfused["grad_norms"][0]
+    cosine = F.cosine_similarity(g_fused, g_unfused, dim=0).item()
+    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
+    log(f"train: fused vs unfused first step: loss {loss_rel:.2e} relative (bound "
+        f"{TRAIN_LOSS_RTOL}), grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), cosine of "
+        f"the gradients {cosine:.6f} (bound {TRAIN_MIN_COSINE})")
+    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < TRAIN_MIN_COSINE:
+        fail(f"fused and unfused first train steps disagree: {agreement}")
+    return {"fused": fused, "unfused": unfused, "first_step_agreement": agreement}
+
+
+def zero_grad_bias(key: str, n_blocks: int) -> bool:
+    """Conv biases followed by complex BN: every block's but the last decoder's."""
+    return key.endswith("_conv.bias") and not key.startswith(f"decoder.{n_blocks - 1}.")
+
+
+def train_reference_phase(dev) -> dict:
+    """The small f32 fused DCCRN: one train step on the card through the f32
+    variants of all eight kernels vs the same step on the CPU (the plain
+    versions, which the CPU tests hold against the JAX package). Loss, grad
+    norm, every gradient and every updated parameter and statistic within
+    LEAF_RTOL of each leaf's largest magnitude. Two exceptions, as the CPU
+    test: a conv bias that complex BN follows has an exactly zero true
+    gradient, so both sides hold rounding residue, compared at the global
+    scale; and Adam moves an element by up to lr whatever its gradient's
+    size, so the parameters get 2 lr more."""
+    rng = np.random.default_rng(SEED + 3)
+    mixture = (0.5 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, 1, 1, 8000))).astype(np.float32)
+    cfg = Config(SMALL_FUSED)
+    results = []
+    for device in (dev, "cpu"):
+        model, spec = build_model(cfg, device=device, generator=torch.Generator().manual_seed(5))
+        opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
+        reset_launches()
+        loss, norm = train_step(model, spec, opt, mixture, sources, "mse", device=device)
+        results.append((float(loss), float(norm), read_launches(),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (loss_c, norm_c, launches, grads_c, state_c), (loss_p, norm_p, _, grads_p, state_p) = results
+    want = {"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6, "enc_bwd_gz": 5,
+            "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6}
+    if launches != want:
+        fail(f"small f32 fused train step launched {launches}, want {want}")
+    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p), "grad_norm": abs(norm_c - norm_p) / norm_p}
+    n_blocks = len(SMALL_FUSED["kernel_num"])
+    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
+                                  ("state", state_c, state_p, 2 * TRAIN_OPTIM["lr"])):
+        scale = max(v.abs().max().item() for v in ref.values())
+        for key in ref:
+            leaf = scale if zero_grad_bias(key, n_blocks) else max(ref[key].abs().max().item(),
+                                                                   1e-12)
+            err = (got[key] - ref[key]).abs().max().item()
+            worst[f"{what} {key}"] = (err - extra) / leaf
+    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
+    if bad or not np.isfinite(loss_c):
+        fail(f"small f32 fused train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
+    top = max(worst, key=worst.get)
+    log(f"train reference: small f32 fused DCCRN one step card vs CPU: loss {worst['loss']:.2e}, "
+        f"grad norm {worst['grad_norm']:.2e} relative; worst leaf {top} {worst[top]:.2e} of its "
+        f"scale (bound {LEAF_RTOL}); launches {launches}")
+    return {"loss_rel": worst["loss"], "grad_norm_rel": worst["grad_norm"], "worst_leaf": top,
+            "worst_leaf_err": worst[top]}
+
+
 def reference_phase(dev) -> dict:
     """Small f32 DCCRN on the card (kernels on) vs the same weights on the
     CPU (plain versions), which the CPU tests hold against the JAX package;
@@ -441,15 +802,19 @@ def agree(outs, refs, what: str) -> list:
     return agreement
 
 
+COUNTED = {"stft": stft_kernel, "mask_e": mask_e_kernel, "conv_block": fused_conv_block,
+           "deconv_block": fused_deconv_block, "enc_bwd_gz": cb.enc_bwd_gz,
+           "enc_bwd_dw": cb.enc_bwd_dw, "dec_bwd_gz": cb.dec_bwd_gz,
+           "dec_bwd_dw": cb.dec_bwd_dw}
+
+
 def reset_launches() -> None:
-    for wrapper in (stft_kernel, mask_e_kernel, fused_conv_block, fused_deconv_block):
+    for wrapper in COUNTED.values():
         wrapper.launches = 0
 
 
 def read_launches() -> dict:
-    return {"stft": stft_kernel.launches, "mask_e": mask_e_kernel.launches,
-            "conv_block": fused_conv_block.launches,
-            "deconv_block": fused_deconv_block.launches}
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
 
 
 def slice_result(tag, model, cfg, requests, times, peak_gib, launches, stages) -> dict:
@@ -527,8 +892,9 @@ def fused_slice_phase(dev, unfused_outs, requests) -> dict:
     outs, times = serve(model, spec, cfg, requests, dev)
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = {"stft": N_REQUESTS, "mask_e": N_REQUESTS, "conv_block": 6 * N_REQUESTS,
-            "deconv_block": 6 * N_REQUESTS}
+    want = dict.fromkeys(COUNTED, 0)  # serving launches no backward kernel
+    want.update({"stft": N_REQUESTS, "mask_e": N_REQUESTS, "conv_block": 6 * N_REQUESTS,
+                 "deconv_block": 6 * N_REQUESTS})
     if launches != want:
         fail(f"the fused path's launches {launches}, want {want}")
     agreement = agree(outs, unfused_outs, "fused path vs unfused kernel path")
@@ -579,20 +945,25 @@ def stage_split(model, cfg, mixture, dev) -> dict:
             fail(f"stage composition differs from forward(): {diff}")
     ms = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
     ms["total"] = events[0].elapsed_time(events[-1])
-    busy_ms, top = device_busy(model, wav)
+    def call():
+        with torch.inference_mode():
+            model(wav)
+
+    busy_ms, top = device_busy(call)
     return {"windows": n_win, "ms": ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / ms["total"] if busy_ms else None,
             "top_kernels": top}
 
 
-def device_busy(model, wav):
-    """Sum of kernel time on the card over one model call (torch.profiler),
-    and the kernels that take most of it. The profiler slows the host, so
-    the share is taken against the unprofiled call's time."""
+def device_busy(fn):
+    """Sum of kernel time on the card over one call of ``fn`` (a model call
+    or a train step; torch.profiler), and the kernels that take most of it.
+    The profiler slows the host, so the share is taken against the
+    unprofiled call's time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        model(wav)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
 
     def device_us(row):
@@ -627,16 +998,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    kernel_num = load_config(CONFIG).model.kernel_num
     kernels = kernel_phase(dev)
-    kernels.update(block_kernel_phase(dev, load_config(CONFIG).model.kernel_num))
+    kernels.update(block_kernel_phase(dev, kernel_num))
+    kernels.update(bwd_kernel_phase(dev, kernel_num))
+    grad_phase(dev)
     reference_phase(dev)
+    train_reference_phase(dev)
     unfused, outs, requests = slice_phase(dev)
     fused = fused_slice_phase(dev, outs, requests)
-    # each kernel's launches on the path that is its own: the unfused path
-    # for the STFT and mask E, the fused path for the block kernels
+    train = train_phase(dev)
+    # each kernel's launches on the path that is its own: the unfused serve
+    # for the STFT and mask E, the fused serve for the block kernels, the
+    # fused train steps for the backward kernels
     for name, entry in kernels.items():
-        source = fused if name in ("conv_block", "deconv_block") else unfused
-        entry["launches"] = source["launches"][name]
+        source = (unfused["launches"] if name in ("stft", "mask_e") else
+                  fused["launches"] if name in ("conv_block", "deconv_block") else
+                  train["fused"]["launches"])
+        entry["launches"] = source[name]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,10 +6,12 @@ imports JAX or anything from the JAX package. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``; they raise when CUDA is
 asked for and absent (see ``device.resolve_device``).
 
-Ported so far (inference of DCCRN through ``train/evaluate.py``):
-``config``, ``models.types``, ``ops.frame``, ``ops.complex_ops``,
-``ops.rnn``, ``models.dccrn``, ``compat.jax_weights``, ``train.evaluate``,
-and the hand-written CUDA kernels under ``kernels/``.
+Ported so far (DCCRN inference through ``train/evaluate.py`` and its train
+step through ``train/solver.py``): ``config``, ``models.types``,
+``ops.frame``, ``ops.complex_ops``, ``ops.complex_conv``, ``ops.rnn``,
+``models.dccrn``, ``compat.jax_weights``, ``train.evaluate``,
+``train.losses``, ``train.solver``, and the hand-written CUDA kernels under
+``kernels/``.
 """
 
 from speech_enhancement_torch.device import resolve_device

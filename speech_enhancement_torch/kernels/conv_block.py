@@ -23,8 +23,20 @@ and rounds once.
 ``fused_conv_block`` / ``fused_deconv_block`` run their plain versions for
 CPU tensors and launch the kernels for CUDA tensors; any other device
 raises. There is no fallback from a kernel to its plain version. The plain
-versions are differentiable; the kernels have no backward yet, so the CUDA
-branch raises when autograd would need one.
+versions are differentiable; the kernel wrappers are not, so their CUDA
+branch raises when autograd would need a backward.
+
+Training goes through :func:`conv_block_train` / :func:`deconv_block_train`
+(counterparts of the JAX custom VJPs of the same names): autograd Functions
+whose forward is the block kernel with stats and whose backward runs four
+more kernels, ``csrc/conv_block_bwd.cu`` (``enc_bwd_gz``, ``enc_bwd_dw``)
+and ``csrc/deconv_block_bwd.cu`` (``dec_bwd_gz``, ``dec_bwd_dw``), for the
+input and weight gradients of the convolution; the stats cotangent, the
+bias gradient and the pointwise backward (``pointwise_bwd``) are plain
+PyTorch in f32, as they are XLA in JAX. Each backward wrapper runs its
+plain version (``*_plain``) on CPU tensors, as the forward ones do. The
+stats -> coefficients -> next block chain stays ordinary autograd outside
+the Functions, so the complex-BN backward composes as in JAX.
 """
 
 from __future__ import annotations
@@ -39,7 +51,8 @@ import torch.nn.functional as F
 from speech_enhancement_torch.kernels import _build
 from speech_enhancement_torch.ops.complex_conv import (complex_cat, complex_conv,
                                                        complex_deconv, conv_from_hwio,
-                                                       deconv_from_hwio)
+                                                       deconv_from_hwio, hwio_from_conv,
+                                                       hwio_from_deconv)
 
 Coeffs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Alpha = Union[torch.Tensor, float]
@@ -52,13 +65,17 @@ def identity_coeffs(c2: int, device=None) -> Coeffs:
             torch.zeros(c2, device=device))
 
 
+def swap_parts(a: torch.Tensor) -> torch.Tensor:
+    """partner() over [B, F, C2, ...]: swap the stacked r / i channel halves."""
+    c = a.shape[2] // 2
+    return torch.cat([a[:, :, c:], a[:, :, :c]], dim=2)
+
+
 def pointwise(x: torch.Tensor, a_diag, a_cross, c0, alpha: Alpha) -> torch.Tensor:
     """``PReLU(a_diag*x + a_cross*partner(x) + c0)`` on [B, F, C2, T], in f32."""
-    c = x.shape[2] // 2
     x = x.float()
-    partner = torch.cat([x[:, :, c:], x[:, :, :c]], dim=2)
     view = (1, 1, -1, 1)
-    z = (a_diag.float().view(view) * x + a_cross.float().view(view) * partner
+    z = (a_diag.float().view(view) * x + a_cross.float().view(view) * swap_parts(x)
          + c0.float().view(view))
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
     return torch.where(z >= 0, z, alpha * z)
@@ -80,9 +97,7 @@ def _epilogue(y: torch.Tensor, dtype: torch.dtype, with_stats: bool):
     out = y.to(dtype).reshape(batch, f_out * c2out, n_time)
     if not with_stats:
         return out
-    c = c2out // 2
-    partner = torch.cat([y[:, :, c:], y[:, :, :c]], dim=2)
-    sums = torch.stack([y.sum(-1), (y * y).sum(-1), (y * partner).sum(-1)], dim=-1)
+    sums = torch.stack([y.sum(-1), (y * y).sum(-1), (y * swap_parts(y)).sum(-1)], dim=-1)
     partials = F.pad(sums, (0, 5)).reshape(batch, f_out * c2out, 8)
     return out, partials
 
@@ -110,13 +125,25 @@ def fused_deconv_block_plain(x, skip, w2, b2, coef_x: Coeffs, alpha_x: Alpha, co
 
 # -- CUDA -------------------------------------------------------------------
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_REGION = [_P, _P, _P, _I, _I]
+# C entry point -> (library, argument types); every entry point ends with
+# the stream and returns cudaGetLastError()
+_ENTRIES = {
+    "conv_block": ("conv_block", [_I] + _REGION + [_P] * 3 + [_I] * 4 + [_P]),
+    "deconv_block": ("deconv_block", [_I] + _REGION * 2 + [_P] * 3 + [_I] * 4 + [_P]),
+    "enc_bwd_gz": ("conv_block_bwd", [_I, _P, _P, _I, _I, _P] + [_I] * 4 + [_P]),
+    "enc_bwd_dw": ("conv_block_bwd", [_I, _P, _P, _P] + [_I] * 8 + [_P]),
+    "dec_bwd_gz": ("deconv_block_bwd", [_I, _P, _P, _I, _I, _P, _I, _P] + [_I] * 4 + [_P]),
+    "dec_bwd_dw": ("deconv_block_bwd", [_I, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]),
+}
+
+
 @functools.cache
 def _entry(name: str):
-    fn = getattr(_build.library(name), name)
-    region = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    regions = region if name == "conv_block" else region + region
-    fn.argtypes = ([ctypes.c_int] + regions + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    library, argtypes = _ENTRIES[name]
+    fn = getattr(_build.library(library), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,8 +160,8 @@ def _check_cuda(what: str, acts: Sequence[torch.Tensor], rest: Sequence) -> None
         raise ValueError(f"{what} takes contiguous activations")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what} has no backward kernel yet (the train slice brings it); run it under "
-            "torch.no_grad() / torch.inference_mode(), or on the CPU for gradients")
+            f"{what} has no backward of its own: run it under torch.no_grad() / "
+            "torch.inference_mode(), or train through conv_block_train / deconv_block_train")
 
 
 def _pack_coeffs(coef: Coeffs, alpha: Alpha, dtype: torch.dtype, device) -> torch.Tensor:
@@ -164,7 +191,7 @@ def _launch(name: str, args: list, x: torch.Tensor) -> None:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = _entry(name)(*args, stream)
-    _build.check(_build.library(name), code, f"{name} launch")
+    _build.check(_build.library(_ENTRIES[name][0]), code, f"{name} launch")
 
 
 def _check_shapes(x: torch.Tensor, f_in: int, c2: int, what: str) -> None:
@@ -207,12 +234,19 @@ def fused_conv_block(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, a_diag
     return (y, stats) if with_stats else y
 
 
-def _split_joined(w2: torch.Tensor, c2x: int, c2s: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Joined-input rows [xr, sr, xi, si] of w2 -> (trunk rows, skip rows),
-    each in its own [r..., i...] order."""
+def _joined_rows(c2x: int, c2s: int) -> Tuple[list, list]:
+    """Positions of the trunk's and the skip's channels, each in its own
+    [r..., i...] order, in the joined order [xr, sr, xi, si]."""
     cx, cs = c2x // 2, c2s // 2
     x_rows = list(range(cx)) + list(range(cx + cs, 2 * cx + cs))
     s_rows = list(range(cx, cx + cs)) + list(range(2 * cx + cs, 2 * cx + 2 * cs))
+    return x_rows, s_rows
+
+
+def _split_joined(w2: torch.Tensor, c2x: int, c2s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Joined-input rows [xr, sr, xi, si] of w2 -> (trunk rows, skip rows),
+    each in its own [r..., i...] order."""
+    x_rows, s_rows = _joined_rows(c2x, c2s)
     return w2[:, :, x_rows], w2[:, :, s_rows]
 
 
@@ -265,3 +299,357 @@ def fused_deconv_block(x: torch.Tensor, skip: torch.Tensor, w2: torch.Tensor, b2
 fused_conv_block.launches = 0
 fused_deconv_block.launches = 0
 
+
+# -- training: the backward pieces in plain PyTorch (XLA in JAX) -------------
+
+def stats_cotangent(g_p: torch.Tensor, y: torch.Tensor, f_out: int, c2out: int) -> torch.Tensor:
+    """g_y contribution of the stats partials' cotangent, f32 [B, R, T].
+
+    Lanes per row: [sum y, sum y^2, sum y*partner], so d/dy[row] = gp0 + 2 y
+    gp1 + (gp2[row] + gp2[partner]) y[partner].
+    """
+    batch, _, n_time = y.shape
+    yb = y.float().view(batch, f_out, c2out, n_time)
+    gb = g_p.float().view(batch, f_out, c2out, 8)
+    g0, g1, g2 = (gb[..., i, None] for i in range(3))
+    out = g0 + 2.0 * yb * g1 + (g2 + swap_parts(g2)) * swap_parts(yb)
+    return out.reshape(batch, f_out * c2out, n_time)
+
+
+def pointwise_bwd(g_z: torch.Tensor, x: torch.Tensor, a_diag, a_cross, c0, alpha, f: int,
+                  c2: int):
+    """Backward of ``z = PReLU(a_diag*x + a_cross*partner(x) + c0)`` in f32,
+    with the f32 coefficients as given (not rounded), as JAX's
+    ``_pointwise_bwd``. g_z, x: [B, f * c2, T]. Returns (g_x f32, z f32 [B, f
+    * c2, T], d_a_diag, d_a_cross, d_c0 [c2], d_alpha [1])."""
+    batch, _, n_time = x.shape
+    xb = x.float().view(batch, f, c2, n_time)
+    gzb = g_z.float().view(batch, f, c2, n_time)
+    view = (1, 1, -1, 1)
+    d, k = a_diag.float().view(view), a_cross.float().view(view)
+    v = d * xb + k * swap_parts(xb) + c0.float().view(view)
+    alpha = alpha.float().reshape(())
+    gv = gzb * torch.where(v >= 0, 1.0, alpha)
+    g_x = d * gv + swap_parts(k * gv)
+    dims = (0, 1, 3)
+    d_ad = (gv * xb).sum(dims)
+    d_ac = (gv * swap_parts(xb)).sum(dims)
+    d_c0 = gv.sum(dims)
+    d_alpha = (gzb * torch.where(v < 0, v, 0.0)).sum().reshape(1)
+    z = torch.where(v >= 0, v, alpha * v)
+    return (g_x.reshape(batch, f * c2, n_time), z.reshape(batch, f * c2, n_time),
+            d_ad, d_ac, d_c0, d_alpha)
+
+
+def _nchw(a: torch.Tensor, f: int, c2: int) -> torch.Tensor:
+    """[B, f * c2, T] -> [B, c2, f, T] in f32."""
+    return a.float().view(a.shape[0], f, c2, a.shape[-1]).permute(0, 2, 1, 3)
+
+
+def _rows(a: torch.Tensor) -> torch.Tensor:
+    """[B, c2, f, T] -> [B, f * c2, T]."""
+    batch, c2, f, n_time = a.shape
+    return a.permute(0, 2, 1, 3).reshape(batch, f * c2, n_time)
+
+
+def _vjp(fn, primal: torch.Tensor, cotangent: torch.Tensor) -> torch.Tensor:
+    with torch.enable_grad():
+        primal = primal.detach().requires_grad_()
+        (grad,) = torch.autograd.grad(fn(primal), primal, cotangent)
+    return grad
+
+
+def enc_bwd_gz_plain(gy: torch.Tensor, w2: torch.Tensor, *, f_in: int, c2in: int,
+                     c2out: int) -> torch.Tensor:
+    """Encoder input gradient: the transpose of the block's conv
+    (``ops/complex_conv.py:complex_conv``) applied to gy, in f32 with the
+    weights rounded to gy's dtype; [B, f_in * c2in, T] in gy's dtype."""
+    kernel = conv_from_hwio(w2.to(gy.dtype).float())
+    z = gy.new_zeros((gy.shape[0], c2in, f_in, gy.shape[-1]), dtype=torch.float32)
+    g_z = _vjp(lambda t: complex_conv(t, kernel, None), z, _nchw(gy, f_in // 2, c2out))
+    return _rows(g_z).to(gy.dtype)
+
+
+def enc_bwd_dw_plain(z: torch.Tensor, gy: torch.Tensor, *, f_in: int, c2in: int,
+                     c2out: int) -> torch.Tensor:
+    """Encoder weight gradient in f32: HWIO [5, 2, c2in, c2out]."""
+    kernel = z.new_zeros((c2out, c2in, 5, 2), dtype=torch.float32)
+    z = _nchw(z, f_in, c2in)
+    dk = _vjp(lambda k: complex_conv(z, k, None), kernel, _nchw(gy, f_in // 2, c2out))
+    return hwio_from_conv(dk)
+
+
+def dec_bwd_gz_plain(gy: torch.Tensor, w2: torch.Tensor, *, f_in: int, c2x: int, c2s: int,
+                     c2out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decoder input gradients of trunk and skip: the transpose of the
+    block's transposed conv (``complex_deconv``) applied to gy, in f32 with
+    the weights rounded to gy's dtype, the joined gradient split back."""
+    kernel = deconv_from_hwio(w2.to(gy.dtype).float())
+    joined = gy.new_zeros((gy.shape[0], c2x + c2s, f_in, gy.shape[-1]), dtype=torch.float32)
+    g = _vjp(lambda t: complex_deconv(t, kernel, None), joined, _nchw(gy, 2 * f_in, c2out))
+    x_rows, s_rows = _joined_rows(c2x, c2s)
+    return _rows(g[:, x_rows]).to(gy.dtype), _rows(g[:, s_rows]).to(gy.dtype)
+
+
+def dec_bwd_dw_plain(zx: torch.Tensor, zs: torch.Tensor, gy: torch.Tensor, *, f_in: int,
+                     c2x: int, c2s: int, c2out: int) -> torch.Tensor:
+    """Decoder weight gradient in f32: HWIO [5, 2, c2x + c2s, c2out], input
+    rows in the joined order [xr, sr, xi, si]."""
+    kernel = zx.new_zeros((c2x + c2s, c2out, 5, 2), dtype=torch.float32)
+    joined = complex_cat(_nchw(zx, f_in, c2x), _nchw(zs, f_in, c2s))
+    dk = _vjp(lambda k: complex_deconv(joined, k, None), kernel, _nchw(gy, 2 * f_in, c2out))
+    return hwio_from_deconv(dk)
+
+
+# -- training: the backward kernels ------------------------------------------
+
+_DW_BLOCKS = 2048  # blocks a weight-gradient launch aims for: ~16 per SM of an H100
+_DW_PART_BYTES = 1 << 28  # cap on its split-K partials
+
+
+def dw_tile(c2: int, c2out: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Channel tile (BM input x BN output channels) of the weight-gradient
+    kernels (``csrc/dw_gemm.cuh``): the smallest of 16 / 32 / 64 that holds
+    each side in bf16, 32 x 32 in f32."""
+    if dtype != torch.bfloat16:
+        return 32, 32
+    return tuple(16 if c <= 16 else 32 if c <= 32 else 64 for c in (c2, c2out))
+
+
+def dw_splits(batch: int, f_out: int, n_time: int, tiles: int, c2tot: int, c2out: int,
+              dtype: torch.dtype) -> int:
+    """K splits of a weight-gradient launch: enough blocks to fill the card
+    (``_DW_BLOCKS`` over the 5 taps x ``tiles`` channel tiles), at most one
+    per step of BK frames, partials within ``_DW_PART_BYTES``."""
+    bk = 64 if dtype == torch.bfloat16 else 32
+    steps = batch * f_out * -(-n_time // bk)
+    cap = max(1, _DW_PART_BYTES // (10 * c2tot * c2out * 4))
+    return max(1, min(-(-_DW_BLOCKS // (5 * tiles)), steps, cap, 65535))
+
+
+def _check_bwd(what: str, acts: Sequence[torch.Tensor], rest: Sequence = ()) -> bool:
+    """True for CUDA tensors (checked), False for CPU tensors; raises on any
+    other device."""
+    device = acts[0].device
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {device}")
+    _check_cuda(what, acts, rest)
+    return True
+
+
+def _is_bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def enc_bwd_gz(gy: torch.Tensor, w2: torch.Tensor, *, f_in: int, c2in: int,
+               c2out: int) -> torch.Tensor:
+    """Encoder input gradient g_z [B, f_in * c2in, T] in gy's dtype from
+    the output gradient gy [B, f_in/2 * c2out, T] and HWIO w2 [5, 2, c2in,
+    c2out]. A CUDA tensor launches ``csrc/conv_block_bwd.cu:enc_bwd_gz``
+    (counted in ``enc_bwd_gz.launches``), a CPU tensor runs the plain version."""
+    _check_shapes(gy, f_in // 2, c2out, "enc_bwd_gz")
+    if w2.shape != (5, 2, c2in, c2out):
+        raise ValueError(f"enc_bwd_gz: w2 {tuple(w2.shape)}")
+    if not _check_bwd("enc_bwd_gz", [gy], [w2]):
+        return enc_bwd_gz_plain(gy, w2, f_in=f_in, c2in=c2in, c2out=c2out)
+    # taps reversed (jf' = 4 - jf, jt' = 1 - jt), input and output swapped
+    w, kp = _pack_weights(w2.flip(0, 1).transpose(2, 3), gy.dtype)
+    batch, _, n_time = gy.shape
+    gz = torch.empty((batch, f_in * c2in, n_time), dtype=gy.dtype, device=gy.device)
+    _launch("enc_bwd_gz", [_is_bf16(gy), gy.data_ptr(), w.data_ptr(), c2out, kp, gz.data_ptr(),
+                           batch, f_in, c2in, n_time], gy)
+    enc_bwd_gz.launches += 1
+    return gz
+
+
+def enc_bwd_dw(z: torch.Tensor, gy: torch.Tensor, *, f_in: int, c2in: int,
+               c2out: int) -> torch.Tensor:
+    """Encoder weight gradient, HWIO [5, 2, c2in, c2out] f32, from the
+    activated input z [B, f_in * c2in, T] and gy [B, f_in/2 * c2out, T] of
+    one dtype. A CUDA tensor launches ``csrc/conv_block_bwd.cu:enc_bwd_dw``
+    (counted in ``enc_bwd_dw.launches``) and sums its split-K partials; a
+    CPU tensor runs the plain version."""
+    _check_shapes(z, f_in, c2in, "enc_bwd_dw")
+    _check_shapes(gy, f_in // 2, c2out, "enc_bwd_dw g")
+    if not _check_bwd("enc_bwd_dw", [z, gy]):
+        return enc_bwd_dw_plain(z, gy, f_in=f_in, c2in=c2in, c2out=c2out)
+    batch, _, n_time = z.shape
+    bm, bn = dw_tile(c2in, c2out, z.dtype)
+    tiles = -(-c2in // bm) * -(-c2out // bn)
+    splits = dw_splits(batch, f_in // 2, n_time, tiles, c2in, c2out, z.dtype)
+    part = torch.empty((splits, 5, 2, c2in, c2out), dtype=torch.float32, device=z.device)
+    _launch("enc_bwd_dw", [_is_bf16(z), z.data_ptr(), gy.data_ptr(), part.data_ptr(), splits,
+                           bm, bn, batch, f_in, c2in, c2out, n_time], z)
+    enc_bwd_dw.launches += 1
+    return part.sum(0)
+
+
+def dec_bwd_gz(gy: torch.Tensor, w2: torch.Tensor, *, f_in: int, c2x: int, c2s: int,
+               c2out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decoder input gradients (g_zx [B, f_in * c2x, T], g_zs [B, f_in *
+    c2s, T]) in gy's dtype from gy [B, 2 f_in * c2out, T] and the joined
+    HWIO w2 [5, 2, c2x + c2s, c2out]. A CUDA tensor launches
+    ``csrc/deconv_block_bwd.cu:dec_bwd_gz`` (counted in
+    ``dec_bwd_gz.launches``), a CPU tensor runs the plain version."""
+    _check_shapes(gy, 2 * f_in, c2out, "dec_bwd_gz")
+    if w2.shape != (5, 2, c2x + c2s, c2out):
+        raise ValueError(f"dec_bwd_gz: w2 {tuple(w2.shape)}")
+    if not _check_bwd("dec_bwd_gz", [gy], [w2]):
+        return dec_bwd_gz_plain(gy, w2, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+    w, kp = _pack_weights(w2.flip(0, 1).transpose(2, 3), gy.dtype)
+    batch, _, n_time = gy.shape
+    gzx = torch.empty((batch, f_in * c2x, n_time), dtype=gy.dtype, device=gy.device)
+    gzs = torch.empty((batch, f_in * c2s, n_time), dtype=gy.dtype, device=gy.device)
+    _launch("dec_bwd_gz", [_is_bf16(gy), gy.data_ptr(), w.data_ptr(), c2out, kp,
+                           gzx.data_ptr(), c2x, gzs.data_ptr(), c2s, batch, f_in, n_time], gy)
+    dec_bwd_gz.launches += 1
+    return gzx, gzs
+
+
+def dec_bwd_dw(zx: torch.Tensor, zs: torch.Tensor, gy: torch.Tensor, *, f_in: int, c2x: int,
+               c2s: int, c2out: int) -> torch.Tensor:
+    """Decoder weight gradient, HWIO [5, 2, c2x + c2s, c2out] f32 with input
+    rows in the joined order [xr, sr, xi, si], from the activated inputs zx,
+    zs and gy of one dtype. A CUDA tensor launches
+    ``csrc/deconv_block_bwd.cu:dec_bwd_dw`` (counted in
+    ``dec_bwd_dw.launches``), sums its split-K partials and puts the rows
+    in the joined order; a CPU tensor runs the plain version."""
+    _check_shapes(zx, f_in, c2x, "dec_bwd_dw")
+    _check_shapes(zs, f_in, c2s, "dec_bwd_dw skip")
+    _check_shapes(gy, 2 * f_in, c2out, "dec_bwd_dw g")
+    if not _check_bwd("dec_bwd_dw", [zx, zs, gy]):
+        return dec_bwd_dw_plain(zx, zs, gy, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+    batch, _, n_time = zx.shape
+    bm, bn = dw_tile(max(c2x, c2s), c2out, zx.dtype)
+    tiles = (-(-c2x // bm) + -(-c2s // bm)) * -(-c2out // bn)
+    splits = dw_splits(batch, 2 * f_in, n_time, tiles, c2x + c2s, c2out, zx.dtype)
+    part = torch.empty((splits, 5, 2, c2x + c2s, c2out), dtype=torch.float32, device=zx.device)
+    _launch("dec_bwd_dw", [_is_bf16(zx), zx.data_ptr(), c2x, zs.data_ptr(), c2s, gy.data_ptr(),
+                           part.data_ptr(), splits, bm, bn, batch, f_in, c2out, n_time], zx)
+    dec_bwd_dw.launches += 1
+    return joined_from_regions(part.sum(0), c2x, c2s)
+
+
+def joined_from_regions(dw: torch.Tensor, c2x: int, c2s: int) -> torch.Tensor:
+    """[5, 2, c2x + c2s, C] with the trunk's rows then the skip's -> the
+    joined order [xr, sr, xi, si] (inverse of ``_split_joined``)."""
+    cx, cs = c2x // 2, c2s // 2
+    parts = (dw[:, :, :cx], dw[:, :, c2x:c2x + cs], dw[:, :, cx:c2x], dw[:, :, c2x + cs:])
+    return torch.cat(parts, dim=2)
+
+
+enc_bwd_gz.launches = 0
+enc_bwd_dw.launches = 0
+dec_bwd_gz.launches = 0
+dec_bwd_dw.launches = 0
+
+
+# -- training: autograd Functions --------------------------------------------
+
+def _gy_eff(g_y, g_p, y, f_out: int, c2out: int, dtype: torch.dtype) -> torch.Tensor:
+    """The output's cotangent plus the stats partials', rounded to the
+    activation dtype (both gradients read it so)."""
+    return (g_y.float() + stats_cotangent(g_p, y, f_out, c2out)).to(dtype)
+
+
+def _bias_grad(g: torch.Tensor, f_out: int, c2out: int) -> torch.Tensor:
+    return g.float().view(g.shape[0], f_out, c2out, -1).sum((0, 1, 3))
+
+
+class ConvBlockTrain(torch.autograd.Function):
+    """Training-mode fused encoder block: (y, stats partials) with exact
+    gradients for (x, w2, b2, a_diag, a_cross, c0, alpha)."""
+
+    @staticmethod
+    def forward(ctx, x, w2, b2, a_diag, a_cross, c0, alpha, f_in, c2in, c2out):
+        y, partials = fused_conv_block(x, w2, b2, a_diag, a_cross, c0, alpha, f_in=f_in,
+                                       c2in=c2in, c2out=c2out, with_stats=True)
+        ctx.save_for_backward(x, w2, a_diag, a_cross, c0, alpha, y)
+        ctx.shapes = (f_in, c2in, c2out)
+        return y, partials
+
+    @staticmethod
+    def backward(ctx, g_y, g_p):
+        x, w2, a_diag, a_cross, c0, alpha, y = ctx.saved_tensors
+        f_in, c2in, c2out = ctx.shapes
+        need = ctx.needs_input_grad
+        g = _gy_eff(g_y, g_p, y, f_in // 2, c2out, x.dtype)
+        shapes = dict(f_in=f_in, c2in=c2in, c2out=c2out)
+        grads = [None] * 7
+        if any(need[i] for i in (0, 3, 4, 5, 6)):  # not for the spectrogram's block
+            g_z = enc_bwd_gz(g, w2, **shapes)
+            g_x, z, *coef_grads = pointwise_bwd(g_z, x, a_diag, a_cross, c0, alpha, f_in, c2in)
+            grads[0] = g_x.to(x.dtype)
+            grads[3:7] = coef_grads[:3] + [coef_grads[3].view_as(alpha)]
+        else:
+            z = pointwise(x.view(x.shape[0], f_in, c2in, -1), a_diag, a_cross, c0, alpha)
+        if need[1]:
+            grads[1] = enc_bwd_dw(z.reshape(x.shape).to(x.dtype), g, **shapes).to(w2.dtype)
+        grads[2] = _bias_grad(g, f_in // 2, c2out)
+        return (*grads, None, None, None)
+
+
+class DeconvBlockTrain(torch.autograd.Function):
+    """Training-mode fused decoder block: (y, stats partials) with exact
+    gradients for (x, skip, w2, b2) and both inputs' coefficients and slopes."""
+
+    @staticmethod
+    def forward(ctx, x, skip, w2, b2, adx, acx, c0x, alpha_x, ads, acs, c0s, alpha_s, f_in, c2x,
+                c2s, c2out):
+        y, partials = fused_deconv_block(
+            x, skip, w2, b2, (adx, acx, c0x), alpha_x, (ads, acs, c0s), alpha_s, f_in=f_in,
+            c2x=c2x, c2s=c2s, c2out=c2out, with_stats=True)
+        ctx.save_for_backward(x, skip, w2, adx, acx, c0x, alpha_x, ads, acs, c0s, alpha_s, y)
+        ctx.shapes = (f_in, c2x, c2s, c2out)
+        return y, partials
+
+    @staticmethod
+    def backward(ctx, g_y, g_p):
+        x, skip, w2, adx, acx, c0x, alpha_x, ads, acs, c0s, alpha_s, y = ctx.saved_tensors
+        f_in, c2x, c2s, c2out = ctx.shapes
+        need = ctx.needs_input_grad
+        g = _gy_eff(g_y, g_p, y, 2 * f_in, c2out, x.dtype)
+        shapes = dict(f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+        grads = [None] * 12
+        regions = ((0, x, (adx, acx, c0x, alpha_x), c2x, 4),
+                   (1, skip, (ads, acs, c0s, alpha_s), c2s, 8))
+        zs = []
+        if any(need[i] for i in (0, 1, *range(4, 12))):
+            for (slot, act, (ad, ac, c0, alpha), c2, first), g_z in zip(
+                    regions, dec_bwd_gz(g, w2, **shapes)):
+                g_a, z, *coef_grads = pointwise_bwd(g_z, act, ad, ac, c0, alpha, f_in, c2)
+                grads[slot] = g_a.to(act.dtype)
+                grads[first:first + 4] = coef_grads[:3] + [coef_grads[3].view_as(alpha)]
+                zs.append(z)
+        else:
+            zs = [pointwise(act.view(act.shape[0], f_in, c2, -1), *coef)
+                  for _, act, coef, c2, _ in regions]
+        if need[2]:
+            zx, z_s = (z.reshape(act.shape).to(x.dtype) for z, (_, act, *_) in zip(zs, regions))
+            grads[2] = dec_bwd_dw(zx, z_s, g, **shapes).to(w2.dtype)
+        grads[3] = _bias_grad(g, 2 * f_in, c2out)
+        return (*grads, None, None, None, None)
+
+
+def conv_block_train(x, w2, b2, a_diag, a_cross, c0, alpha: torch.Tensor, *, f_in: int,
+                     c2in: int, c2out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-mode encoder block (counterpart of the JAX custom VJP
+    ``conv_block_train``): ``fused_conv_block(..., with_stats=True)`` with a
+    backward through ``enc_bwd_gz`` / ``enc_bwd_dw``; alpha is a [1]
+    tensor. The input-gradient kernel is skipped when neither x nor its
+    coefficients need a gradient (the first block, whose input is the
+    spectrogram)."""
+    return ConvBlockTrain.apply(x, w2, b2, a_diag, a_cross, c0, alpha, f_in, c2in, c2out)
+
+
+def deconv_block_train(x, skip, w2, b2, coef_x: Coeffs, alpha_x: torch.Tensor, coef_s: Coeffs,
+                       alpha_s: torch.Tensor, *, f_in: int, c2x: int, c2s: int,
+                       c2out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-mode decoder block (counterpart of the JAX custom VJP
+    ``deconv_block_train``): ``fused_deconv_block(..., with_stats=True)``
+    with a backward through ``dec_bwd_gz`` / ``dec_bwd_dw``; the slopes are
+    [1] tensors."""
+    return DeconvBlockTrain.apply(x, skip, w2, b2, *coef_x, alpha_x, *coef_s, alpha_s, f_in,
+                                  c2x, c2s, c2out)

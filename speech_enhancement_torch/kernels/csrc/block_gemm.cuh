@@ -3,6 +3,11 @@
 // Shared by conv_block.cu (encoder block) and deconv_block.cu (decoder
 // block); each source instantiates only its own variant. What the two
 // compute, and what bounds them, is written at the top of each source.
+// The input gradients of the two blocks are the same sums with the roles
+// of the indexings swapped (conv_block_bwd.cu, deconv_block_bwd.cu): they
+// run this kernel as its kGrad variant: the input staged as it is (no
+// pointwise), no bias, no stats and, for the decoder's trunk and skip, two
+// outputs.
 //
 // Layout: activations are [B, F * C2, T] (frequency-major, channels stacked
 // [r..., i...] per frequency row, time contiguous), as in the JAX package.
@@ -56,7 +61,8 @@ constexpr int CPITCH = BN + 1; // f32 epilogue tile pitch: conflict-free row-wis
 
 struct Region {
   const void* x;      // [B, f_in * c2, T], activation type
-  const float* coef;  // [3 * c2 + 1]: a_diag, a_cross, c0 (rounded to the type), alpha
+  const float* coef;  // [3 * c2 + 1]: a_diag, a_cross, c0 (rounded to the type), alpha;
+                      // unused by the input gradients (kGrad)
   const void* w;      // [5, 2, c2out, kp], activation type, zero past c2
   int c2;             // channels (r and i stacked) of a frequency row
   int kp;             // c2 rounded up to BK
@@ -65,10 +71,12 @@ struct Region {
 struct Params {
   Region reg[2];
   int n_reg;
-  const float* bias;  // [c2out]
+  const float* bias;  // [c2out]; unused by the input gradients (kGrad)
   void* y;            // [B, f_out * c2out, T]
   float* stats;       // [B, f_out * c2out, 8], zeroed; null without stats
   int f_in, f_out, c2out, n_time, m_tiles;
+  void* y2;           // kGrad: null, or with y a split of the output channels (out_row)
+  int c2a;            // with y2: the channels (r and i) that go to y
 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -136,14 +144,15 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 }
 
 // Z rows of frames [t_first, t_first + ZROWS) for channels [ci0, ci0 + BK)
-// of input row fi, with the pointwise applied; zero outside the tensor.
-template <typename T, int BM>
+// of input row fi, with the pointwise applied (kGrad: as they are); zero
+// outside the tensor.
+template <typename T, int BM, bool kGrad>
 __device__ __forceinline__ void stage_z(const Smem<T, BM>& sm, const Region& rg, int b, int f_in,
                                         int fi, int ci0, int t_first, int n_time) {
   const T* x = static_cast<const T*>(rg.x) +
                (static_cast<long long>(b) * f_in + fi) * rg.c2 * n_time;
   const int c = rg.c2 / 2;
-  const float alpha = rg.coef[3 * rg.c2];
+  const float alpha = kGrad ? 1.f : rg.coef[3 * rg.c2];
   for (int idx = threadIdx.x; idx < BK * ZROWS; idx += THREADS) {
     const int k = idx / ZROWS;
     const int n = idx - k * ZROWS;  // consecutive threads read consecutive frames
@@ -151,11 +160,15 @@ __device__ __forceinline__ void stage_z(const Smem<T, BM>& sm, const Region& rg,
     const int t = t_first + n;
     float z = 0.f;
     if (ci < rg.c2 && t >= 0 && t < n_time) {
-      const int partner = ci < c ? ci + c : ci - c;
-      const float v = to_f32(x[static_cast<long long>(ci) * n_time + t]);
-      const float p = to_f32(x[static_cast<long long>(partner) * n_time + t]);
-      z = rg.coef[ci] * v + rg.coef[rg.c2 + ci] * p + rg.coef[2 * rg.c2 + ci];
-      z = z >= 0.f ? z : alpha * z;
+      if constexpr (kGrad) {
+        z = to_f32(x[static_cast<long long>(ci) * n_time + t]);
+      } else {
+        const int partner = ci < c ? ci + c : ci - c;
+        const float v = to_f32(x[static_cast<long long>(ci) * n_time + t]);
+        const float p = to_f32(x[static_cast<long long>(partner) * n_time + t]);
+        z = rg.coef[ci] * v + rg.coef[rg.c2 + ci] * p + rg.coef[2 * rg.c2 + ci];
+        z = z >= 0.f ? z : alpha * z;
+      }
     }
     sm.z[n][k] = from_f32<T>(z);
   }
@@ -181,12 +194,39 @@ __device__ __forceinline__ void stage_w(const Smem<T, BM>& sm, const Region& rg,
   }
 }
 
+// kGrad: start of output channel co's row of frames for (b, fo). Without
+// y2, row co of y [B, f_out * c2out, T]. With y2 (the decoder's input gradient),
+// co counts the joined channels [a_r, s_r, a_i, s_i] of the decoder's
+// input: the a channels (c2a of them, r and i) go to y [B, f_out * c2a,
+// T], the s channels to y2 [B, f_out * (c2out - c2a), T], each stacked
+// [r..., i...].
+template <typename T>
+__device__ __forceinline__ T* out_row(const Params& p, int b, int fo, int co, int c_half) {
+  if (p.y2 == nullptr)
+    return static_cast<T*>(p.y) +
+           ((static_cast<long long>(b) * p.f_out + fo) * p.c2out + co) * p.n_time;
+  const bool imag = co >= c_half;
+  const int j = imag ? co - c_half : co;
+  const int ca = p.c2a / 2;
+  const int c2s = p.c2out - p.c2a;
+  if (j < ca)
+    return static_cast<T*>(p.y) +
+           ((static_cast<long long>(b) * p.f_out + fo) * p.c2a + j + (imag ? ca : 0)) *
+               p.n_time;
+  return static_cast<T*>(p.y2) +
+         ((static_cast<long long>(b) * p.f_out + fo) * c2s + (j - ca) + (imag ? c2s / 2 : 0)) *
+             p.n_time;
+}
+
 // kDecoder = false: stride-2 conv, input row fi = 2 fo + jf - 2, frames
 //   t - 1 + jt (causal zero at t = -1).
 // kDecoder = true: stride-2 transposed conv cropped [2:-1] and chomped
 //   [1:], input row fi = (fo + jf - 2) / 2 for fo + jf even, frames t + jt
 //   (zero at t = T).
-template <typename T, int BM, bool kDecoder>
+// kGrad = true (the input gradients): the input is staged as it is, no
+//   bias, no stats, and the output may be split over y and y2 (out_row).
+//   A template parameter, so the forward kernels compile as they did.
+template <typename T, int BM, bool kDecoder, bool kGrad>
 __global__ void __launch_bounds__(THREADS) block_kernel(const Params p) {
   using TL = Tile<BM>;
   __shared__ __align__(16) unsigned char raw[Smem<T, BM>::BYTES];
@@ -222,7 +262,7 @@ __global__ void __launch_bounds__(THREADS) block_kernel(const Params p) {
       }
       if (fi < 0 || fi >= p.f_in) continue;
       for (int ci0 = 0; ci0 < rg.c2; ci0 += BK) {
-        stage_z<T, BM>(sm, rg, b, p.f_in, fi, ci0, t_first, p.n_time);
+        stage_z<T, BM, kGrad>(sm, rg, b, p.f_in, fi, ci0, t_first, p.n_time);
         stage_w<T, BM>(sm, rg, jf, ci0, p.c2out, m_tile);
         __syncthreads();
 #pragma unroll
@@ -289,6 +329,16 @@ __global__ void __launch_bounds__(THREADS) block_kernel(const Params p) {
   }
   __syncthreads();
 
+  if constexpr (kGrad) {
+    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
+      const int r = idx / BN;
+      const int n = idx - r * BN;
+      const int co = out_channel<BM>(r, m_tile, c_half);
+      const int t = t0 + n;
+      if (co >= 0 && t < p.n_time) out_row<T>(p, b, fo, co, c_half)[t] = from_f32<T>(sm.c[r][n]);
+    }
+    return;
+  }
   T* y = static_cast<T*>(p.y);
   const long long row0 = static_cast<long long>(b) * p.f_out * p.c2out + fo * p.c2out;
   for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
@@ -322,9 +372,13 @@ __global__ void __launch_bounds__(THREADS) block_kernel(const Params p) {
   }
 }
 
-template <typename T, bool kDecoder>
+template <typename T, bool kDecoder, bool kGrad = false>
 int launch(Params p, int batch, cudaStream_t stream) {
   if (batch <= 0 || p.n_time <= 0 || p.f_in <= 0 || p.c2out <= 0 || p.c2out % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kGrad ? (p.stats != nullptr ||
+               (p.y2 != nullptr && (p.c2a <= 0 || p.c2a % 2 != 0 || p.c2a >= p.c2out)))
+            : (p.y2 != nullptr || p.bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < p.n_reg; ++i)
     if (p.reg[i].c2 <= 0 || p.reg[i].c2 % 2 != 0 || p.reg[i].kp % BK != 0 ||
@@ -336,10 +390,10 @@ int launch(Params p, int batch, cudaStream_t stream) {
   if (z > 65535 || p.f_out > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((p.n_time + BN - 1) / BN, p.f_out, static_cast<unsigned>(z));
   switch (bm) {
-    case 16: block_kernel<T, 16, kDecoder><<<grid, THREADS, 0, stream>>>(p); break;
-    case 32: block_kernel<T, 32, kDecoder><<<grid, THREADS, 0, stream>>>(p); break;
-    case 64: block_kernel<T, 64, kDecoder><<<grid, THREADS, 0, stream>>>(p); break;
-    default: block_kernel<T, 128, kDecoder><<<grid, THREADS, 0, stream>>>(p); break;
+    case 16: block_kernel<T, 16, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+    case 32: block_kernel<T, 32, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+    case 64: block_kernel<T, 64, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+    default: block_kernel<T, 128, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

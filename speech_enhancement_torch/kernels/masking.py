@@ -6,7 +6,12 @@ what bounds it and how it is laid out.
 
 ``mask_e_kernel`` launches the kernel for CUDA tensors and runs
 ``mask_e_plain`` for CPU tensors; any other device raises. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. On CUDA tensors it goes
+through :class:`MaskE`, an autograd Function (counterpart of the JAX
+``apply_mask_e_diff``) whose forward is the kernel and whose backward is
+the gradient of the pole-free formula :func:`mask_e_ref` in plain PyTorch,
+as it is XLA in JAX: the ``1e-12`` inside its square root keeps the
+gradient finite where the mask is zero.
 """
 
 from __future__ import annotations
@@ -27,6 +32,33 @@ def mask_e_plain(xr, xi, mr, mi) -> Tuple[torch.Tensor, torch.Tensor]:
     return scale * (xr * mr - xi * mi), scale * (xr * mi + xi * mr)
 
 
+def mask_e_ref(xr, xi, mr, mi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask E with ``|M| = sqrt(mr^2 + mi^2 + 1e-12)``, the form whose
+    gradient :class:`MaskE` takes (JAX ``_mask_e_ref``)."""
+    mag = torch.sqrt(mr * mr + mi * mi + 1e-12)
+    scale = torch.tanh(mag) / (mag + 1e-8)
+    return scale * (xr * mr - xi * mi), scale * (xr * mi + xi * mr)
+
+
+class MaskE(torch.autograd.Function):
+    """Mask E with the kernel forward (plain on CPU tensors) and the
+    backward of :func:`mask_e_ref`."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, mr, mi):
+        ctx.save_for_backward(xr, xi, mr, mi)
+        if xr.device.type == "cpu":
+            return mask_e_plain(xr, xi, mr, mi)
+        return _launch(xr, xi, mr, mi)
+
+    @staticmethod
+    def backward(ctx, g_r, g_i):
+        with torch.enable_grad():
+            inputs = [a.detach().requires_grad_() for a in ctx.saved_tensors]
+            outs = mask_e_ref(*inputs)
+            return torch.autograd.grad(outs, inputs, (g_r, g_i))
+
+
 @functools.cache
 def _entry():
     fn = _build.library("masking").mask_e_f32
@@ -39,8 +71,8 @@ def mask_e_kernel(xr, xi, mr, mi) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask mode 'E' over four same-shape f32 arrays -> (out_r, out_i).
 
     On CUDA tensors this launches ``csrc/masking.cu`` on the current stream
-    (counted in ``mask_e_kernel.launches``); on CPU tensors it runs
-    :func:`mask_e_plain`.
+    (counted in ``mask_e_kernel.launches``), differentiably through
+    :class:`MaskE`; on CPU tensors it runs :func:`mask_e_plain`.
     """
     arrays = (xr, xi, mr, mi)
     if any(a.shape != xr.shape for a in arrays):
@@ -57,6 +89,12 @@ def mask_e_kernel(xr, xi, mr, mi) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("mask_e_kernel takes contiguous, 16-byte aligned arrays")
     if xr.numel() == 0:
         raise ValueError("mask_e_kernel takes non-empty arrays")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in arrays):
+        return MaskE.apply(xr, xi, mr, mi)
+    return _launch(xr, xi, mr, mi)
+
+
+def _launch(xr, xi, mr, mi) -> Tuple[torch.Tensor, torch.Tensor]:
     out_r = torch.empty_like(xr)
     out_i = torch.empty_like(xr)
     fn = _entry()

@@ -6,7 +6,11 @@ is laid out.
 
 ``stft_kernel`` launches the kernel for a CUDA tensor and runs
 ``stft_plain`` for a CPU tensor; any other device raises. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. When the signal needs a
+gradient, the CUDA branch goes through :class:`STFT`, an autograd Function
+(counterpart of the JAX ``stft_pallas_diff``) whose backward is the exact
+cotangent of the signal, ``g @ basis^T`` overlap-added at the hop, in plain
+PyTorch (XLA in JAX); the basis gets no gradient (JAX returns zeros).
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from speech_enhancement_torch.kernels import _build
+from speech_enhancement_torch.ops.frame import overlap_add
 
 _MAX_ROWS = 65535 * 128  # grid.y holds the 128-frame row tiles (csrc/stft.cu)
 
@@ -24,6 +30,27 @@ _MAX_ROWS = 65535 * 128  # grid.y holds the 128-frame row tiles (csrc/stft.cu)
 def stft_plain(x: torch.Tensor, basis: torch.Tensor, hop: int, win: int) -> torch.Tensor:
     """[B, T] x [win, D] -> [B, n_frames, D], n_frames = (T - win)//hop + 1."""
     return torch.matmul(x.unfold(-1, win, hop), basis)
+
+
+class STFT(torch.autograd.Function):
+    """Frames of x times basis, with the signal's exact gradient."""
+
+    @staticmethod
+    def forward(ctx, x, basis, hop, win):
+        ctx.save_for_backward(basis)
+        ctx.geometry = (x.shape[-1], hop)
+        if x.device.type == "cpu":
+            return stft_plain(x, basis, hop, win)
+        return _launch(x, basis, hop, win)
+
+    @staticmethod
+    def backward(ctx, g):
+        (basis,) = ctx.saved_tensors
+        total, hop = ctx.geometry
+        sig = overlap_add(torch.matmul(g.float(), basis.float().t()), hop)
+        cover = sig.shape[-1]  # (n_frames - 1) * hop + win <= total
+        sig = F.pad(sig, (0, total - cover)) if cover < total else sig[..., :total]
+        return sig, None, None, None
 
 
 @functools.cache
@@ -53,7 +80,8 @@ def stft_kernel(x: torch.Tensor, basis: torch.Tensor, hop: int, win: int) -> tor
 
     The frame tensor is never stored. On a CUDA tensor this launches
     ``csrc/stft.cu`` on the current stream (counted in
-    ``stft_kernel.launches``); on a CPU tensor it runs :func:`stft_plain`.
+    ``stft_kernel.launches``), through :class:`STFT` when x needs a
+    gradient; on a CPU tensor it runs :func:`stft_plain`.
     """
     _check_inputs(x, basis, hop, win)
     if x.device.type == "cpu":
@@ -70,6 +98,15 @@ def stft_kernel(x: torch.Tensor, basis: torch.Tensor, hop: int, win: int) -> tor
     if batch * n_frames > _MAX_ROWS:
         raise ValueError(f"stft_kernel takes at most {_MAX_ROWS} frames a launch, "
                          f"got {batch} x {n_frames}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return STFT.apply(x, basis, hop, win)
+    return _launch(x, basis, hop, win)
+
+
+def _launch(x: torch.Tensor, basis: torch.Tensor, hop: int, win: int) -> torch.Tensor:
+    batch, total = x.shape
+    dim = basis.shape[1]
+    n_frames = (total - win) // hop + 1
     out = torch.empty((batch, n_frames, dim), dtype=torch.float32, device=x.device)
     fn = _entry()
     with torch.cuda.device(x.device):

@@ -1,6 +1,7 @@
 """DCCRN, deep complex conv-recurrent net on raw waveform (Hu et al. 2020).
 
-Counterpart of speech_enhancement_tpu/models/dccrn.py, inference path:
+Counterpart of speech_enhancement_tpu/models/dccrn.py (inference and the
+train() forward):
 
   wav -> ConvSTFT (win 400 / hop 100 / fft 512, non-centred, Hann)
       -> drop DC bin, complex encoder x6 (complex conv k=(5,2) s=(2,1),
@@ -28,8 +29,9 @@ counterpart of the JAX ``use_pallas_*=False``.
 encoder and decoder as the fused block kernels of kernels/conv_block.py:
 activations flow as [B, F * 2C, T], each block is one launch that applies
 the previous block's folded complex BN and PReLU to its input while it
-reads it, and the decoder's skip join is never stored. The parameters are
-the same either way.
+reads it, and the decoder's skip join is never stored. In train() mode the
+blocks are autograd Functions whose backward runs the backward kernels.
+The parameters are the same either way.
 
 Precision policy (``dtype="bfloat16"``): convs and LSTM in bf16, complex
 BN statistics in f32, mask head and synthesis in f32. Parameters stay f32.
@@ -50,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_deconv_block,
+from speech_enhancement_torch.kernels.conv_block import (conv_block_train, deconv_block_train,
+                                                         fused_conv_block, fused_deconv_block,
                                                          identity_coeffs, pointwise)
 from speech_enhancement_torch.kernels.masking import mask_e_kernel
 from speech_enhancement_torch.kernels.stft import stft_kernel
@@ -352,9 +355,12 @@ class DCCRN(nn.Module):
     # -- use_fused_blocks: the JAX package's _fused_encoder_decoder ----------
     # Activations flow as [B, F * C2, T] (channels stacked [r..., i...] per
     # frequency row). Each block is one kernel launch that applies the
-    # previous block's folded complex BN and PReLU while it reads its input;
-    # in train() mode the kernels also return per-row sums, whose batch
-    # moments update the running statistics.
+    # previous block's folded complex BN and PReLU while it reads its input.
+    # In train() mode each block is the autograd Function conv_block_train /
+    # deconv_block_train (backward kernels for the conv's input and weight
+    # gradients); its per-row sums give the batch moments, which update the
+    # running statistics and fold into the next block's coefficients as
+    # ordinary autograd, as JAX composes them outside its custom VJPs.
     def _encode_fused(self, real: torch.Tensor, imag: torch.Tensor) -> List["_FusedSkip"]:
         batch, _, n_time = real.shape
         f = self.fft_len // 2  # DC bin dropped
@@ -370,7 +376,7 @@ class DCCRN(nn.Module):
             shapes = dict(f_in=f, c2in=c2in, c2out=c2out)
             stats = None
             if self.training:
-                y, partials = fused_conv_block(*args, **shapes, with_stats=True)
+                y, partials = conv_block_train(*args, **shapes)
                 stats = stats_from_partials(partials, c2out, batch * (f // 2) * n_time)
                 cbn._update(stats)
             else:
@@ -410,10 +416,11 @@ class DCCRN(nn.Module):
                     skip.alpha)
             shapes = dict(f_in=f, c2x=c2x, c2s=skip.c2, c2out=c2out)
             stats = None
-            if self.training and not block.last:
-                y, partials = fused_deconv_block(*args, **shapes, with_stats=True)
-                stats = stats_from_partials(partials, c2out, batch * 2 * f * n_time)
-                block[1]._update(stats)
+            if self.training:  # the last block's stats go unused, as in JAX
+                y, partials = deconv_block_train(*args, **shapes)
+                if not block.last:
+                    stats = stats_from_partials(partials, c2out, batch * 2 * f * n_time)
+                    block[1]._update(stats)
             else:
                 y = fused_deconv_block(*args, **shapes)
             if not block.last:

@@ -13,14 +13,16 @@ import pytest
 import torch
 
 from speech_enhancement_torch.config import Config, with_defaults
+from speech_enhancement_torch.kernels import conv_block as cb
 from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_conv_block_plain,
                                                          fused_deconv_block,
                                                          fused_deconv_block_plain)
-from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain
+from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain, mask_e_ref
 from speech_enhancement_torch.kernels.stft import stft_kernel, stft_plain
 from speech_enhancement_torch.models import build_model
 from speech_enhancement_torch.models.dccrn import _stft_bases
 from speech_enhancement_torch.train.evaluate import evaluate_utterance
+from speech_enhancement_torch.train.solver import get_optimizer, train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -196,7 +198,7 @@ def test_block_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError):
         fused_conv_block(strided, w_enc, b2, *cx, ax, **enc)
     w_grad = w_enc.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="backward"):
+    with pytest.raises(RuntimeError, match="conv_block_train"):
         fused_conv_block(x, w_grad, b2, *cx, ax, **enc)
     with torch.no_grad():  # no autograd: the kernel runs
         fused_conv_block(x, w_grad, b2, *cx, ax, **enc)
@@ -220,3 +222,190 @@ def test_small_fused_dccrn_on_card_matches_cpu(card):
                                                                        before[1] + 3)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=2e-4)  # the parity bound
+
+
+def _assert_gz_close(got, want, dtype):
+    """bf16: one bf16 step apart at most, as the forward blocks; f32: 1e-4
+    relative, 1e-5 absolute (f32 sums in another order)."""
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    if dtype == torch.bfloat16:
+        assert ((got - want).abs() <= 2**-7 * want.abs() + 1e-3).all(), (got - want).abs().max()
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _assert_dw_close(got, want):
+    """f32 sums over B x rows x T products in another order (split-K
+    partials summed by torch.sum): within 1e-4 of the largest magnitude."""
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    scale = want.abs().max().item() + 1e-12
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,f_in,c2in,c2out,n_time", [
+    (2, 16, 2, 16, 70),    # enc0's channels, ragged frame chunk
+    (1, 8, 16, 32, 67),
+    (2, 8, 64, 256, 130),  # several channel tiles
+])
+def test_encoder_backward_kernels_match_plain(card, dtype, batch, f_in, c2in, c2out, n_time):
+    rng = np.random.default_rng(7)
+    gy = torch.from_numpy(rng.standard_normal((batch, f_in // 2 * c2out, n_time),
+                                              dtype=np.float32)).to(card, dtype)
+    z = torch.from_numpy(rng.standard_normal((batch, f_in * c2in, n_time),
+                                             dtype=np.float32)).to(card, dtype)
+    w2 = _randn((5, 2, c2in, c2out), 8, card) / np.sqrt(10 * c2in)
+    shapes = dict(f_in=f_in, c2in=c2in, c2out=c2out)
+    before = cb.enc_bwd_gz.launches, cb.enc_bwd_dw.launches
+    gz = cb.enc_bwd_gz(gy, w2, **shapes)
+    dw = cb.enc_bwd_dw(z, gy, **shapes)
+    torch.cuda.synchronize()
+    assert (cb.enc_bwd_gz.launches, cb.enc_bwd_dw.launches) == (before[0] + 1, before[1] + 1)
+    _assert_gz_close(gz, cb.enc_bwd_gz_plain(gy, w2, **shapes), dtype)
+    _assert_dw_close(dw, cb.enc_bwd_dw_plain(z, gy, **shapes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,f_in,c2x,c2s,c2out,n_time", [
+    (1, 8, 16, 16, 2, 67),      # dec5's channels
+    (2, 4, 32, 32, 64, 70),
+    (1, 4, 64, 32, 256, 130),   # trunk and skip of different widths
+])
+def test_decoder_backward_kernels_match_plain(card, dtype, batch, f_in, c2x, c2s, c2out,
+                                              n_time):
+    rng = np.random.default_rng(9)
+
+    def act(rows):
+        return torch.from_numpy(rng.standard_normal((batch, rows, n_time),
+                                                    dtype=np.float32)).to(card, dtype)
+
+    gy, zx, zs = act(2 * f_in * c2out), act(f_in * c2x), act(f_in * c2s)
+    w2 = _randn((5, 2, c2x + c2s, c2out), 10, card) / np.sqrt(10 * (c2x + c2s))
+    shapes = dict(f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+    before = cb.dec_bwd_gz.launches, cb.dec_bwd_dw.launches
+    gzx, gzs = cb.dec_bwd_gz(gy, w2, **shapes)
+    dw = cb.dec_bwd_dw(zx, zs, gy, **shapes)
+    torch.cuda.synchronize()
+    assert (cb.dec_bwd_gz.launches, cb.dec_bwd_dw.launches) == (before[0] + 1, before[1] + 1)
+    want_x, want_s = cb.dec_bwd_gz_plain(gy, w2, **shapes)
+    _assert_gz_close(gzx, want_x, dtype)
+    _assert_gz_close(gzs, want_s, dtype)
+    _assert_dw_close(dw, cb.dec_bwd_dw_plain(zx, zs, gy, **shapes))
+
+
+def _leaf_close(got, want, rel=2e-3):
+    """Within ``rel`` of the leaf's largest magnitude (tests/test_dccrn_fused.py:97-113)."""
+    scale = max(want.abs().max().item(), got.abs().max().item(), 1e-8)
+    assert (got - want).abs().max().item() <= rel * scale, ((got - want).abs().max(), scale)
+
+
+@pytest.mark.parametrize("block", ["encoder", "decoder"])
+def test_block_train_functions_on_card_match_cpu(card, block):
+    """conv_block_train / deconv_block_train, f32: every gradient of the
+    kernels' backward on the card vs the plain backward on the CPU."""
+    if block == "encoder":
+        (x,), w2, b2, (coef,), (alpha,) = _block_inputs(3, "cpu", torch.float32, 2, 16,
+                                                        (16,), 32, 40)
+        inputs = [x, w2, b2, *coef, alpha]
+        shapes = dict(f_in=16, c2in=16, c2out=32)
+        fn, counters = cb.conv_block_train, (cb.enc_bwd_gz, cb.enc_bwd_dw)
+        rows = 8 * 32
+    else:
+        (x, s), w2, b2, (cx, cs), (ax, a_s) = _block_inputs(4, "cpu", torch.float32, 2, 8,
+                                                            (16, 16), 8, 33)
+        inputs = [x, s, w2, b2, *cx, ax, *cs, a_s]
+        shapes = dict(f_in=8, c2x=16, c2s=16, c2out=8)
+        counters = (cb.dec_bwd_gz, cb.dec_bwd_dw)
+
+        def fn(x, s, w2, b2, a0, a1, a2, ax, s0, s1, s2, a_s, **kw):
+            return cb.deconv_block_train(x, s, w2, b2, (a0, a1, a2), ax, (s0, s1, s2), a_s, **kw)
+        rows = 16 * 8
+    rng = np.random.default_rng(11)
+    g_y = torch.from_numpy(rng.standard_normal((2, rows, x.shape[-1]), dtype=np.float32))
+    g_p = torch.from_numpy(rng.standard_normal((2, rows, 8), dtype=np.float32))
+    grads = []
+    for dev in (card, "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in inputs]
+        y, partials = fn(*leaves, **shapes)
+        before = [c.launches for c in counters]
+        torch.autograd.backward((y, partials), (g_y.to(dev), g_p.to(dev)))
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([1, 1] if dev == card else [0, 0])
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, want in zip(*grads):
+        _leaf_close(got, want)
+
+
+def test_repaired_gradients_on_card_match_plain(card):
+    """Mask E and the STFT launch their kernels under autograd and give the
+    plain path's gradients (the pole-free mask formula; the STFT's exact
+    signal cotangent)."""
+    rng = np.random.default_rng(12)
+    arrays = [torch.from_numpy(rng.standard_normal((2, 257, 67), dtype=np.float32))
+              for _ in range(4)]
+    arrays[2][0, :5] = 0.0  # a zero mask: finite gradients
+    arrays[3][0, :5] = 0.0
+    g = [torch.from_numpy(rng.standard_normal((2, 257, 67), dtype=np.float32))
+         for _ in range(2)]
+    got = [a.to(card).requires_grad_() for a in arrays]
+    before = mask_e_kernel.launches
+    torch.autograd.backward(mask_e_kernel(*got), [t.to(card) for t in g])
+    assert mask_e_kernel.launches == before + 1
+    want = [a.clone().requires_grad_() for a in arrays]
+    torch.autograd.backward(mask_e_ref(*want), g)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.grad).all()
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5, atol=1e-5)
+
+    basis = torch.from_numpy(_stft_bases(400, 512)[0])
+    x = torch.from_numpy(rng.standard_normal((2, 7000), dtype=np.float32))
+    gs = torch.from_numpy(rng.standard_normal((2, 67, 514), dtype=np.float32))
+    xc = x.to(card).requires_grad_()
+    before = stft_kernel.launches
+    stft_kernel(xc, basis.to(card), 100, 400).backward(gs.to(card))
+    assert stft_kernel.launches == before + 1
+    xp = x.clone().requires_grad_()
+    stft_plain(xp, basis, 100, 400).backward(gs)
+    torch.testing.assert_close(xc.grad.cpu(), xp.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_small_fused_train_step_on_card_matches_cpu(card):
+    """One fused train step of the small f32 DCCRN through every kernel on
+    the card vs the same step on the CPU: loss, grad norm, every gradient
+    and every updated parameter within 2e-3 of each leaf's scale."""
+    cfg = Config(dict(SMALL, use_fused_blocks=True))
+    optim = Config({"optim": "adam", "lr": 3e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5})
+    rng = np.random.default_rng(13)
+    mixture = (0.1 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+    sources = (0.1 * rng.standard_normal((2, 1, 1, 8000))).astype(np.float32)
+    results = []
+    for dev in (card, "cpu"):
+        model, spec = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(5))
+        opt = get_optimizer(optim, model.parameters())
+        before = cb.enc_bwd_gz.launches, cb.dec_bwd_dw.launches
+        loss, norm = train_step(model, spec, opt, mixture, sources, "mse", device=dev)
+        after = cb.enc_bwd_gz.launches, cb.dec_bwd_dw.launches
+        assert (after[0] - before[0], after[1] - before[1]) == ((2, 3) if dev == card else (0, 0))
+        results.append((float(loss), float(norm),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (loss_c, norm_c, grads_c, state_c), (loss_p, norm_p, grads_p, state_p) = results
+    assert np.isfinite(loss_c) and abs(loss_c - loss_p) <= 2e-3 * abs(loss_p)
+    assert abs(norm_c - norm_p) <= 2e-3 * norm_p
+    for got, want in ((grads_c, grads_p), (state_c, state_p)):
+        scale = max(v.abs().max().item() for v in want.values())
+        for key in want:
+            # a conv bias followed by complex BN has an exactly zero true
+            # gradient, so both sides hold rounding residue (and Adam's
+            # step on it): compare it at the global scale
+            # (tests/test_dccrn_fused.py:102-108)
+            if zero_grad_bias(key, len(SMALL["kernel_num"])):
+                assert (got[key] - want[key]).abs().max().item() <= 2e-3 * scale, key
+            else:
+                _leaf_close(got[key], want[key])
+
+
+def zero_grad_bias(key: str, n_blocks: int) -> bool:
+    """Conv biases followed by complex BN: every block's but the last decoder's."""
+    return key.endswith("_conv.bias") and not key.startswith(f"decoder.{n_blocks - 1}.")
