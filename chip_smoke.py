@@ -8,25 +8,37 @@ Run from the repository root with no arguments:
 It builds the port's CUDA kernels from ``speech_enhancement_torch/kernels/
 csrc``, holds each against its plain PyTorch version at the shapes of the
 serving and training paths (the two block kernels and their four backward
-kernels at all twelve blocks of the model), then serves three 10 s requests
-with DCCRN at the full width of ``configs/dccrn_vbd.yaml`` (bf16, random
-weights from a seeded ``torch.Generator``) through
-``train/evaluate.py:evaluate_utterance``, twice: with the default unfused
-encoder/decoder, which goes through the STFT and mask-E kernels, and with
-``model.use_fused_blocks = True``, which goes through the four forward
-kernels; it checks the launches of each run and that the two agree. Then
-it trains the same model at ``bench.py``'s operating point (B = 128, 4 s,
-MSE, Adam 3e-4, clip 5, int16 wire) through ``train/solver.py:train_step``,
-three steps with ``use_fused_blocks = True`` (all eight kernels) and three
-on the unfused ``cbn_fold = True`` path, and holds the two first steps
-against each other. It imports nothing of JAX.
+kernels at all twelve blocks of DCCRN; the LSTM recurrence forward at CRN's
+serving and training shapes and at rnn-stft-mask's in both directions, its
+backward at CRN's training shape, and a small f32 case with an initial
+state), then serves three 10 s requests with DCCRN at the full width of
+``configs/dccrn_vbd.yaml`` (bf16, random weights from a seeded
+``torch.Generator``) through ``train/evaluate.py:evaluate_utterance``,
+twice: with the default unfused encoder/decoder, which goes through the
+STFT and mask-E kernels, and with ``model.use_fused_blocks = True``, which
+goes through the four forward kernels; it checks the launches of each run
+and that the two agree. Then it trains the same model at ``bench.py``'s
+operating point (B = 128, 4 s, MSE, Adam 3e-4, clip 5, int16 wire) through
+``train/solver.py:train_step``, three steps with ``use_fused_blocks = True``
+(all eight block and DCCRN kernels) and three on the unfused ``cbn_fold =
+True`` path, and holds the two first steps against each other. Then CRN at
+the full width of ``configs/crn_vbd.yaml`` (bf16, ``fused_rnn``): three 10 s
+requests (two LSTM forward launches each) and three train steps at the
+config's operating point (B = 16 x 4 s; two forward and two backward
+launches each), each held against the same weights on the plain loop
+(``fused_rnn = False``), and a small f32 CRN on the card against the CPU
+path; and rnn-stft-mask at the full width of
+``configs/rnn_stft_mask_clarity.yaml`` serving three stereo 10 s requests
+(six forward launches each, three of them reversed). Each phase's seconds
+and the total are logged. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
 against the plain version, kernel / plain / library times and the least
 time the card could take; for the block kernels and their backward kernels
 each time is the sum over the model's six blocks of that kind, one launch
-each, and the error the largest of the six), and as the last line
+each, and the error the largest of the six; the LSTM kernels' at one CRN
+layer), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line is printed; so does a host without CUDA.
 """
@@ -48,6 +60,7 @@ import torch.nn.functional as F
 from speech_enhancement_torch.config import Config, load_config
 from speech_enhancement_torch.kernels import _build
 from speech_enhancement_torch.kernels import conv_block as cb
+from speech_enhancement_torch.kernels import lstm as lstm_k
 from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_conv_block_plain,
                                                          fused_deconv_block,
                                                          fused_deconv_block_plain)
@@ -55,6 +68,7 @@ from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain
 from speech_enhancement_torch.kernels.stft import stft_kernel, stft_plain
 from speech_enhancement_torch.models import build_model
 from speech_enhancement_torch.models.dccrn import _stft_bases
+from speech_enhancement_torch.ops.stft import istft_custom, stft_custom
 from speech_enhancement_torch.ops.complex_conv import (complex_cat, conv_from_hwio,
                                                        deconv_from_hwio)
 from speech_enhancement_torch.train.evaluate import evaluate_utterance, extract_windows
@@ -63,6 +77,8 @@ from speech_enhancement_torch.train.solver import (compute_loss, decode_wire, ge
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "dccrn_vbd.yaml")
+CRN_CONFIG = os.path.join(ROOT, "configs", "crn_vbd.yaml")
+MASK_CONFIG = os.path.join(ROOT, "configs", "rnn_stft_mask_clarity.yaml")
 SEED = 1234
 N_REQUESTS = 3
 SECONDS = 10.0
@@ -108,6 +124,22 @@ LEAF_RTOL = 2e-3  # small f32 train step, card vs CPU: the JAX package's fused-g
 SMALL_FUSED = {"name": "dccrn", "win_len": 128, "win_inc": 32, "fft_len": 256,
                "kernel_num": [4, 8, 8, 16, 16, 16], "rnn_layers": 2, "rnn_units": 16,
                "dtype": "float32", "use_fused_blocks": True}
+# LSTM kernels vs their plain versions, bf16, T = 501: both store h, c and
+# the gates rounded to bf16 and sum each step's f32 product in another
+# order, so a stored value may land one bf16 step (2^-7 |v|) apart, and the
+# recurrence carries such flips into later steps. A first run at CRN's and
+# rnn-stft-mask's shapes measured the worst element at one step and the
+# mean drift at 2.6e-5 (h) to 5.5e-5 (c) after 501 steps, with no growth
+# along t. Bounds: every element within two steps plus 2^-8, the mean
+# within 4e-4 (7x the drift). Backward (dgates, dh0, dc0, f32 carries):
+# within 1e-2 of each output's largest magnitude (measured 4.0e-3, 9.8e-4,
+# 2.2e-4). f32 (full-f32 FMA on both sides, 64 steps): 1e-4.
+LSTM_RTOL, LSTM_ATOL, LSTM_MEAN = 2.0**-6, 2.0**-8, 4e-4
+LSTM_BWD_RTOL, LSTM_F32_TOL = 1e-2, 1e-4
+CRN_TRAIN_BATCH = 16  # configs/crn_vbd.yaml solver.batch_size, 4 s each
+# the small f32 CRN on the card vs the CPU path: n_fft 128 gives H = 256
+SMALL_CRN = {"name": "crn", "n_fft": 128, "hop_length": 32, "win_length": 128, "center": True,
+             "segment": 0.25, "sample_rate": 16000, "dtype": "float32", "fused_rnn": True}
 
 
 def log(msg: str) -> None:
@@ -592,18 +624,21 @@ def flat_grads(model) -> torch.Tensor:
     return torch.cat([p.grad.float().flatten() for p in model.parameters()])
 
 
-def train_path(tag, dev, wire_m, wire_s, **overrides) -> dict:
-    """TRAIN_STEPS steps of train_step at full width; then one step split
-    by CUDA events and one under the profiler."""
-    cfg, model, spec = load_model(dev, **overrides)
+def train_path(tag, dev, wire_m, wire_s, path=CONFIG, **overrides) -> dict:
+    """TRAIN_STEPS steps of train_step with the config at ``path`` at full
+    width; then one step split by CUDA events and one under the profiler."""
+    cfg, model, spec = load_model(dev, path, **overrides)
     opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
+    model_config = cfg.model if spec.domain == "stft" else None
+    step_fn = functools.partial(train_step, model, spec, opt, wire_m, wire_s, "mse", device=dev,
+                                model_config=model_config)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, norms, times, first_grads = [], [], [], None
     for step in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, norm = train_step(model, spec, opt, wire_m, wire_s, "mse", device=dev)
+        loss, norm = step_fn()
         losses.append(float(loss))  # syncs
         norms.append(float(norm))
         times.append(time.perf_counter() - t0)
@@ -617,12 +652,14 @@ def train_path(tag, dev, wire_m, wire_s, **overrides) -> dict:
         fail(f"{tag} train: the loss does not fall over {TRAIN_STEPS} steps: {losses}")
     step_ms = 1e3 * statistics.median(times[1:])
 
-    mixture, sources = decode_wire(wire_m, dev), decode_wire(wire_s, dev)
+    mixture, target = decode_wire(wire_m, dev), decode_wire(wire_s, dev)[:, 0]
+    if model_config is not None:  # the train step's stft-domain adaptation
+        mixture, target = stft_custom(mixture, model_config), stft_custom(target, model_config)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     events[0].record()
     opt.zero_grad()
     out = model(mixture)
-    loss = compute_loss("mse", out, sources[:, 0], mixture)
+    loss = compute_loss("mse", out, target, mixture)
     events[1].record()
     loss.backward()
     events[2].record()
@@ -631,12 +668,12 @@ def train_path(tag, dev, wire_m, wire_s, **overrides) -> dict:
     torch.cuda.synchronize()
     split = {name: events[i].elapsed_time(events[i + 1])
              for i, name in enumerate(("forward", "backward", "optimizer"))}
-    busy_ms, top = device_busy(lambda: train_step(model, spec, opt, wire_m, wire_s, "mse",
-                                                  device=dev))
-    result = {"config": "configs/dccrn_vbd.yaml", "overrides": overrides, "batch": TRAIN_BATCH,
+    busy_ms, top = device_busy(step_fn)
+    batch = mixture.shape[0]
+    result = {"config": os.path.relpath(path, ROOT), "overrides": overrides, "batch": batch,
               "seconds": TRAIN_SECONDS, "losses": losses, "grad_norms": norms,
               "step_ms": [1e3 * t for t in times], "median_step_ms_2_to_3": step_ms,
-              "utt_per_s": TRAIN_BATCH / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+              "utt_per_s": batch / (step_ms / 1e3), "peak_mem_gib": peak_gib,
               "launches": launches, "split_ms": split, "device_busy_ms": busy_ms,
               "device_busy_share": busy_ms / step_ms if busy_ms else None, "top_kernels": top}
     log(f"train {tag}: losses {losses}, grad norms {norms}; step ms "
@@ -657,9 +694,10 @@ def train_phase(dev) -> dict:
     cfg = load_config(CONFIG)
     wire_m, wire_s = train_batch(int(cfg.dset.sample_rate))
     fused, g_fused = train_path("fused", dev, wire_m, wire_s, use_fused_blocks=True)
-    per_step = {"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6,
-                # enc0's input is the spectrogram: no input gradient launched
-                "enc_bwd_gz": 5, "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6}
+    per_step = dict.fromkeys(COUNTED, 0)
+    per_step.update({"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6,
+                     # enc0's input is the spectrogram: no input gradient launched
+                     "enc_bwd_gz": 5, "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6})
     want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if fused["launches"] != want:
         fail(f"the fused train steps' launches {fused['launches']}, want {want}")
@@ -708,11 +746,13 @@ def train_reference_phase(dev) -> dict:
                         {k: p.grad.cpu() for k, p in model.named_parameters()},
                         {k: v.cpu() for k, v in model.state_dict().items()}))
     (loss_c, norm_c, launches, grads_c, state_c), (loss_p, norm_p, _, grads_p, state_p) = results
-    want = {"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6, "enc_bwd_gz": 5,
-            "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6}
+    want = dict.fromkeys(COUNTED, 0)
+    want.update({"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6, "enc_bwd_gz": 5,
+                 "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6})
     if launches != want:
         fail(f"small f32 fused train step launched {launches}, want {want}")
-    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p), "grad_norm": abs(norm_c - norm_p) / norm_p}
+    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
+             "grad_norm": abs(norm_c - norm_p) / norm_p}
     n_blocks = len(SMALL_FUSED["kernel_num"])
     for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
                                   ("state", state_c, state_p, 2 * TRAIN_OPTIM["lr"])):
@@ -763,11 +803,11 @@ def reference_phase(dev) -> dict:
     return errors
 
 
-def load_model(dev, **overrides):
-    """configs/dccrn_vbd.yaml at full width with ``overrides`` on its model
-    section, random weights from the config's seed (the same for every
-    override)."""
-    cfg = load_config(CONFIG)
+def load_model(dev, path=CONFIG, **overrides):
+    """The config at ``path`` (default configs/dccrn_vbd.yaml) at full width
+    with ``overrides`` on its model section, random weights from the
+    config's seed (the same for every override)."""
+    cfg = load_config(path)
     for key, value in overrides.items():
         setattr(cfg.model, key, value)
     gen = torch.Generator().manual_seed(int(cfg.seed))
@@ -805,12 +845,14 @@ def agree(outs, refs, what: str) -> list:
 COUNTED = {"stft": stft_kernel, "mask_e": mask_e_kernel, "conv_block": fused_conv_block,
            "deconv_block": fused_deconv_block, "enc_bwd_gz": cb.enc_bwd_gz,
            "enc_bwd_dw": cb.enc_bwd_dw, "dec_bwd_gz": cb.dec_bwd_gz,
-           "dec_bwd_dw": cb.dec_bwd_dw}
+           "dec_bwd_dw": cb.dec_bwd_dw, "lstm_fwd": lstm_k.lstm_fwd,
+           "lstm_bwd": lstm_k.lstm_bwd}
 
 
 def reset_launches() -> None:
     for wrapper in COUNTED.values():
         wrapper.launches = 0
+    lstm_k.lstm_fwd.reverse_launches = 0
 
 
 def read_launches() -> dict:
@@ -976,6 +1018,385 @@ def device_busy(fn):
     return busy_ms, top
 
 
+# -- the LSTM recurrence kernels ----------------------------------------------
+
+def lstm_work(steps, batch, hidden, backward=False):
+    """(FLOPs, bytes) of one recurrence launch: the step products 2 B H 4H
+    a step; bf16 sequences read or written once (forward: x_proj and the
+    weights in, h, c, gates out; backward: gates, c, c_prev, dout and the
+    weights in, dgates out), f32 states."""
+    flops = 2.0 * steps * batch * hidden * 4 * hidden
+    seq, gates = 2.0 * steps * batch * hidden, 2.0 * steps * batch * 4 * hidden
+    weights, states = 2.0 * 4 * hidden * hidden, 4.0 * batch * hidden
+    if backward:
+        nbytes = 2 * gates + 3 * seq + weights + 4 * states
+    else:
+        nbytes = 2 * gates + 2 * seq + weights + 2 * states
+    return flops, nbytes
+
+
+def lstm_inputs(gen, steps, batch, hidden, dtype, dev, state=False):
+    x_proj = torch.randn(steps, batch, 4 * hidden, device=dev, generator=gen).to(dtype)
+    w_hh = (torch.randn(hidden, 4 * hidden, device=dev, generator=gen) / hidden**0.5).to(dtype)
+    h0 = 0.5 * torch.randn(batch, hidden, device=dev, generator=gen) if state else torch.zeros(
+        batch, hidden, device=dev)
+    c0 = 0.5 * torch.randn(batch, hidden, device=dev, generator=gen) if state else torch.zeros(
+        batch, hidden, device=dev)
+    return x_proj, w_hh, h0.to(dtype), c0.to(dtype)
+
+
+def lstm_close(got, want, bf16: bool):
+    """(max abs error, mean abs error) of the forward's outputs; fails past
+    the stated bounds."""
+    worst, mean = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        bound = LSTM_RTOL * w.abs() + LSTM_ATOL if bf16 else LSTM_F32_TOL * (1 + w.abs())
+        if g.shape != w.shape or not bool((err <= bound).all()):
+            return float("inf"), float("inf")
+        worst, mean = max(worst, err.max().item()), max(mean, err.mean().item())
+    if bf16 and mean > LSTM_MEAN:
+        return worst, float("inf")
+    return worst, mean
+
+
+def lstm_kernel_phase(dev) -> dict:
+    """Both LSTM kernels vs their plain versions on the card: the forward at
+    CRN's serving (B 192) and training (B 16) shapes and at rnn-stft-mask's
+    (B 384, H 896) in both directions, bf16, T 501; the backward at CRN's
+    training shape; a small f32 case with an initial state both ways. The
+    yardstick is cuDNN's torch.nn.LSTM on the layer's input at the same
+    shapes (more work: it includes the input projection), forward for the
+    forward kernel, forward + backward for the backward kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
+    rows = []
+    for tag, steps, batch, hidden, reverse in (
+            ("crn serve", 501, 192, 1792, False), ("crn train", 501, 16, 1792, False),
+            ("rnn-stft-mask serve", 501, 384, 896, False),
+            ("rnn-stft-mask serve, reversed", 501, 384, 896, True)):
+        args = lstm_inputs(gen, steps, batch, hidden, bf16, dev)
+        got = lstm_k.lstm_fwd(*args, reverse)
+        want = lstm_k.fused_lstm_plain(*args, reverse)
+        torch.cuda.synchronize()
+        err, mean = lstm_close(got, want, True)
+        if not np.isfinite(mean):
+            fail(f"lstm_fwd ({tag}) disagrees with plain: max abs err {err}, mean {mean} (bounds "
+                 f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean {LSTM_MEAN:g})")
+        del got, want
+        flops, nbytes = lstm_work(steps, batch, hidden)
+        in_dim = 257 if tag.startswith("rnn") else hidden  # the first layer's input width
+        cudnn = torch.nn.LSTM(in_dim, hidden).to(dev, bf16)
+        x = torch.randn(steps, batch, in_dim, device=dev, generator=gen).to(bf16)
+        with torch.no_grad():
+            library = cuda_ms(lambda: cudnn(x), reps=3, warmup=1)
+        row = {"case": tag, "steps": steps, "batch": batch, "hidden": hidden,
+               "reverse": reverse, "max_abs_err": err, "mean_abs_err": mean,
+               "ms": cuda_ms(lambda: lstm_k.lstm_fwd(*args, reverse), reps=3, warmup=1),
+               "plain_ms": cuda_ms(lambda: lstm_k.fused_lstm_plain(*args, reverse), reps=1,
+                                   warmup=0),
+               "library_ms": library, "gflop": flops / 1e9,
+               "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+               "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
+        row["bound_by"] = ("operations" if row["flops_bound_ms"] > row["bytes_bound_ms"]
+                           else "bytes")
+        rows.append(row)
+        log(f"lstm_fwd {tag}: T {steps}, B {batch}, H {hidden} bf16; max abs "
+            f"err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms "
+            f"({row['gflop'] / row['ms']:.2f} TFLOP/s), plain {row['plain_ms']:.3f} ms, cuDNN "
+            f"nn.LSTM forward ({in_dim} -> {hidden}) {library:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del args, cudnn, x
+
+    # backward at CRN's train shape, on the plain forward's outputs
+    steps, batch, hidden = 501, CRN_TRAIN_BATCH, 1792
+    x_proj, w_hh, h0, c0 = lstm_inputs(gen, steps, batch, hidden, bf16, dev)
+    _, c_seq, gates = lstm_k.fused_lstm_plain(x_proj, w_hh, h0, c0)
+    c_prev = lstm_k.shift_prev(c_seq, c0, False)
+    dout = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16)
+    d_last = torch.randn(batch, hidden, device=dev, generator=gen)
+    zero = torch.zeros(batch, hidden, device=dev)
+    bwd_args = (gates, c_seq, c_prev, dout, w_hh, zero, d_last)
+    got = lstm_k.lstm_bwd(*bwd_args)
+    want = lstm_k.lstm_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+           for g, w in zip(got, want)]
+    bwd_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    if not max(rel) <= LSTM_BWD_RTOL:
+        fail(f"lstm_bwd disagrees with plain: dgates, dh0, dc0 {rel} of their largest "
+             f"(bound {LSTM_BWD_RTOL:g})")
+    del got, want
+    cudnn = torch.nn.LSTM(hidden, hidden).to(dev, bf16)
+    x = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16).requires_grad_()
+    g_out = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16)
+
+    def cudnn_fwd_bwd():
+        cudnn(x)[0].backward(g_out)
+
+    flops, nbytes = lstm_work(steps, batch, hidden, backward=True)
+    bwd = {"case": "crn train", "steps": steps, "batch": batch, "hidden": hidden,
+           "rel_err": rel, "max_abs_err": bwd_err,
+           "ms": cuda_ms(lambda: lstm_k.lstm_bwd(*bwd_args), reps=3, warmup=1),
+           "plain_ms": cuda_ms(lambda: lstm_k.lstm_bwd_plain(*bwd_args), reps=1, warmup=0),
+           "library_ms": cuda_ms(cudnn_fwd_bwd, reps=3, warmup=1), "gflop": flops / 1e9,
+           "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+           "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    bwd["bound_ms"] = max(bwd["flops_bound_ms"], bwd["bytes_bound_ms"])
+    bwd["bound_by"] = "operations" if bwd["flops_bound_ms"] > bwd["bytes_bound_ms"] else "bytes"
+    log(f"lstm_bwd crn train: T {steps}, B {batch}, H {hidden} bf16; dgates, dh0, dc0 within "
+        f"{[f'{r:.2e}' for r in rel]} of their largest (bound {LSTM_BWD_RTOL:g}); kernel "
+        f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, cuDNN nn.LSTM forward + backward "
+        f"{bwd['library_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+    del bwd_args, gates, c_seq, c_prev, dout, x, g_out, cudnn
+
+    # small f32 with an initial state, both directions, forward and backward
+    for reverse in (False, True):
+        args = lstm_inputs(gen, 64, 8, 256, torch.float32, dev, state=True)
+        got = lstm_k.lstm_fwd(*args, reverse)
+        want = lstm_k.fused_lstm_plain(*args, reverse)
+        err, _ = lstm_close(got, want, False)
+        c_prev = lstm_k.shift_prev(want[1], args[3], reverse)
+        dout = torch.randn_like(want[0])
+        d_last = torch.randn(8, 256, device=dev, generator=gen)
+        b_args = (want[2], want[1], c_prev, dout, args[1], d_last, d_last)
+        rel = max(((g - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(lstm_k.lstm_bwd(*b_args, reverse),
+                                  lstm_k.lstm_bwd_plain(*b_args, reverse)))
+        if not np.isfinite(err) or rel > LSTM_F32_TOL:
+            fail(f"f32 LSTM kernels (reverse {reverse}) disagree with plain: forward {err}, "
+                 f"backward {rel} (bound {LSTM_F32_TOL:g})")
+        log(f"lstm f32 T 64, B 8, H 256, initial state, reverse {reverse}: forward max abs err "
+            f"{err:.2e}, backward {rel:.2e} of the largest (bound {LSTM_F32_TOL:g})")
+
+    main = rows[0]
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return {
+        "lstm_fwd": {
+            "name": "lstm_fwd", "route": "cuda",
+            "source": "speech_enhancement_torch/kernels/csrc/lstm_fwd.cu",
+            "replaces": "speech_enhancement_tpu/ops/pallas/lstm.py:116",
+            "shape": "CRN serve: T 501, B 192, H 1792 bf16 (one layer)",
+            "tolerance": f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean <= {LSTM_MEAN:g}",
+            **{k: main[k] for k in keys}, "cases": rows},
+        "lstm_bwd": {
+            "name": "lstm_bwd", "route": "cuda",
+            "source": "speech_enhancement_torch/kernels/csrc/lstm_bwd.cu",
+            "replaces": "speech_enhancement_tpu/ops/pallas/lstm.py:148",
+            "shape": "CRN train: T 501, B 16, H 1792 bf16 (one layer)",
+            "tolerance": f"{LSTM_BWD_RTOL:g} of each output's largest",
+            **{k: bwd[k] for k in keys}, "case": bwd},
+    }
+
+
+def crn_stage_split(model, cfg, mixture, dev) -> dict:
+    """CUDA-event split of one request's model call for an stft-domain
+    model (CRN): STFT, encoder, LSTM, decoder, mask + iSTFT."""
+    window = int(cfg.dset.sample_rate * cfg.model.segment)
+    stride = int(cfg.model.win_length)
+    x = torch.from_numpy(mixture[0]).to(dev)  # [C, T]
+    x = (x - x.mean()) / (x.std() + 1e-9)
+    n_win = -(-(x.shape[-1] - window) // stride) + 1
+    n_win = -(-n_win // 4) * 4
+    wav = extract_windows(x, window, stride, n_win).contiguous()  # [N, C, W]
+    names = ["stft", "encoder", "lstm", "decoder", "mask_istft"]
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            events[0].record()
+            spec = stft_custom(wav, cfg.model)
+            events[1].record()
+            skips = model.encode(model.magnitude(spec))
+            events[2].record()
+            mid = model.recur(skips[-1])
+            events[3].record()
+            mask = model.decode(mid, skips)
+            events[4].record()
+            out = istft_custom(mask[..., None] * spec, window, cfg.model)
+            events[5].record()
+            torch.cuda.synchronize()
+    ms = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
+    ms["total"] = events[0].elapsed_time(events[-1])
+
+    def call():
+        with torch.inference_mode():
+            istft_custom(model(stft_custom(wav, cfg.model)), window, cfg.model)
+
+    busy_ms, top = device_busy(call)
+    if not torch.isfinite(out).all():
+        fail("CRN stage split: non-finite output")
+    return {"windows": n_win, "ms": ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / ms["total"] if busy_ms else None, "top_kernels": top}
+
+
+def serve_family(tag, dev, path, requests, want_launches, stage_fn=None) -> dict:
+    """Serve ``requests`` with the config at ``path`` (fused_rnn as the
+    config sets it) and again with fused_rnn = False (the plain loop), the
+    same weights; checks the first run's launches and the agreement."""
+    cfg, model, spec = load_model(dev, path)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs, times = serve(model, spec, cfg, requests, dev)
+    launches = read_launches()
+    reversed_launches = lstm_k.lstm_fwd.reverse_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(want_launches)
+    if launches != want:
+        fail(f"{tag}: launches {launches}, want {want}")
+    for out, req in zip(outs, requests):
+        shape = ((1, model.num_spk) if hasattr(model, "num_spk") else (1,)) + req.shape[1:]
+        if out.shape != shape or not np.isfinite(out).all():
+            fail(f"{tag}: output shape {out.shape} (want {shape}), finite {np.isfinite(out).all()}")
+    stages = stage_fn(model, cfg, requests[0], dev) if stage_fn else None
+    del model
+    _, plain, _ = load_model(dev, path, fused_rnn=False)
+    reset_launches()
+    plain_outs, plain_times = serve(plain, spec, cfg, requests, dev)
+    if any(read_launches().values()):
+        fail(f"{tag}: the plain loop launched a kernel: {read_launches()}")
+    agreement = agree(outs, plain_outs, f"{tag}: kernel path vs plain loop")
+    del plain
+    ms = 1e3 * statistics.mean(times[1:])
+    result = {"config": os.path.relpath(path, ROOT), "params": n_params,
+              "requests": len(requests), "audio_s": SECONDS,
+              "request_ms": [1e3 * t for t in times], "ms_per_request": ms,
+              "utt_per_s": 1e3 / ms, "rtf": ms / 1e3 / SECONDS, "peak_mem_gib": peak_gib,
+              "launches": launches, "reverse_launches": reversed_launches,
+              "plain_request_ms": [1e3 * t for t in plain_times], "agreement": agreement}
+    log(f"{tag}: {n_params} params (bf16 compute), {len(requests)} requests of {SECONDS:g} s; "
+        f"request ms {[round(x, 1) for x in result['request_ms']]} (first includes warm-up); "
+        f"warm {ms:.1f} ms/request = {result['utt_per_s']:.2f} utt/s, RTF {result['rtf']:.4f}; "
+        f"peak {peak_gib:.2f} GiB; launches {launches}; plain loop request ms "
+        f"{[round(x, 1) for x in result['plain_request_ms']]}; kernel vs plain {agreement}")
+    if stages:
+        result.update(stage_ms=stages["ms"], windows_per_request=stages["windows"],
+                      device_busy_ms=stages["device_busy_ms"],
+                      device_busy_share=stages["device_busy_share"],
+                      top_kernels=stages["top_kernels"])
+        log_stages(tag, stages)
+    return result
+
+
+def crn_slice_phase(dev) -> dict:
+    """configs/crn_vbd.yaml at full width (bf16, fused_rnn) serving three
+    10 s requests: two forward launches a request."""
+    rng = np.random.default_rng(SEED)
+    requests = [utterance(rng, int(SECONDS * 16000)) for _ in range(N_REQUESTS)]
+    return serve_family("crn serve", dev, CRN_CONFIG, requests,
+                        {"lstm_fwd": 2 * N_REQUESTS}, crn_stage_split)
+
+
+def rnn_stft_mask_slice_phase(dev) -> dict:
+    """configs/rnn_stft_mask_clarity.yaml at full width (three bidirectional
+    LSTM layers of 896, bf16, fused_rnn) serving three stereo 10 s
+    requests: six forward launches a request, three of them reversed."""
+    rng = np.random.default_rng(SEED + 5)
+    n = int(SECONDS * 16000)
+    requests = [np.concatenate([utterance(rng, n), utterance(rng, n)], axis=1)
+                for _ in range(N_REQUESTS)]
+    result = serve_family("rnn-stft-mask serve", dev, MASK_CONFIG, requests,
+                          {"lstm_fwd": 6 * N_REQUESTS})
+    if result["reverse_launches"] != 3 * N_REQUESTS:
+        fail(f"rnn-stft-mask serve: {result['reverse_launches']} reversed forward launches, "
+             f"want {3 * N_REQUESTS}")
+    return result
+
+
+def crn_train_batch():
+    """configs/crn_vbd.yaml's operating point: 16 f32 mixtures and targets
+    of 4 s (speech-like targets, noisy mixtures), made with numpy."""
+    rng = np.random.default_rng(SEED + 6)
+    n = int(TRAIN_SECONDS * 16000)
+    target = np.stack([utterance(rng, n)[0] for _ in range(CRN_TRAIN_BATCH)])  # [B, 1, n]
+    mixture = (target + 0.1 * rng.standard_normal(target.shape)).astype(np.float32)
+    return mixture, target[:, None].astype(np.float32)
+
+
+def crn_train_phase(dev) -> dict:
+    """Three CRN train steps at the config's operating point with the
+    kernels (two forward and two backward launches a step), held on the
+    first step against the plain loop (fused_rnn = False)."""
+    mixture, sources = crn_train_batch()
+    fused, g_fused = train_path("crn", dev, mixture, sources, CRN_CONFIG)
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(lstm_fwd=2 * TRAIN_STEPS, lstm_bwd=2 * TRAIN_STEPS)
+    if fused["launches"] != want:
+        fail(f"crn train: launches {fused['launches']}, want {want}")
+    plain, g_plain = train_path("crn, plain loop", dev, mixture, sources, CRN_CONFIG,
+                                fused_rnn=False)
+    if any(plain["launches"].values()):
+        fail(f"crn train, plain loop: launched {plain['launches']}")
+    loss_rel = abs(fused["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    norm_rel = abs(fused["grad_norms"][0] - plain["grad_norms"][0]) / plain["grad_norms"][0]
+    cosine = F.cosine_similarity(g_fused, g_plain, dim=0).item()
+    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
+    log(f"crn train: kernels vs plain loop, first step: loss {loss_rel:.2e} relative (bound "
+        f"{TRAIN_LOSS_RTOL}), grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), gradient "
+        f"cosine {cosine:.6f} (bound {TRAIN_MIN_COSINE})")
+    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < TRAIN_MIN_COSINE:
+        fail(f"crn train: kernel and plain first steps disagree: {agreement}")
+    return {"fused": fused, "plain": plain, "first_step_agreement": agreement}
+
+
+def crn_reference_phase(dev) -> dict:
+    """The small f32 CRN (n_fft 128: H = 256) with the kernels on the card vs
+    the CPU path, which the CPU tests hold against JAX: a served utterance
+    within F32_ATOL, then one train step (every gradient and updated leaf
+    within LEAF_RTOL of its scale; each conv bias feeds a BatchNorm, so its
+    true gradient is zero: compared at the global scale; Adam moves a
+    parameter by up to lr whatever its gradient: 2 lr more)."""
+    cfg = Config({"model": SMALL_CRN, "dset": {"sample_rate": 16000, "norm": "z-score"}})
+    wav = utterance(np.random.default_rng(SEED + 7), 12000)
+    rng = np.random.default_rng(SEED + 8)
+    mixture = (0.5 * rng.standard_normal((2, 1, 3968))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, 1, 1, 3968))).astype(np.float32)
+    results = []
+    for device in (dev, "cpu"):
+        model, spec = build_model(cfg.model, device=device,
+                                  generator=torch.Generator().manual_seed(6))
+        reset_launches()
+        served = evaluate_utterance(wav, model, spec, cfg, device=device)
+        serve_launches = read_launches()
+        opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
+        reset_launches()
+        loss, norm = train_step(model, spec, opt, mixture, sources, "mse", device=device,
+                                model_config=cfg.model)
+        results.append((served, serve_launches, float(loss), float(norm), read_launches(),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (served_c, serve_l, loss_c, norm_c, train_l, grads_c, state_c), (
+        served_p, _, loss_p, norm_p, _, grads_p, state_p) = results
+    serve_err = float(np.abs(served_c - served_p).max())
+    if not np.isfinite(served_c).all() or serve_err > F32_ATOL:
+        fail(f"small f32 CRN served on the card vs CPU: max abs err {serve_err} > {F32_ATOL}")
+    if serve_l["lstm_fwd"] != 2 or train_l["lstm_fwd"] != 2 or train_l["lstm_bwd"] != 2:
+        fail(f"small f32 CRN launches: serve {serve_l}, train step {train_l}")
+    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
+             "grad_norm": abs(norm_c - norm_p) / norm_p}
+    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
+                                  ("state", state_c, state_p, 2 * TRAIN_OPTIM["lr"])):
+        scale = max(v.abs().max().item() for v in ref.values())
+        for key in ref:
+            leaf = (scale if key.endswith(".conv.bias")
+                    else max(ref[key].abs().max().item(), 1e-12))
+            worst[f"{what} {key}"] = ((got[key] - ref[key]).abs().max().item() - extra) / leaf
+    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
+    if bad:
+        fail(f"small f32 CRN train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
+    top = max(worst, key=worst.get)
+    log(f"crn reference: small f32 CRN (H 256) card vs CPU: served max abs err {serve_err:.2e} "
+        f"(bound {F32_ATOL}); one train step loss {worst['loss']:.2e}, grad norm "
+        f"{worst['grad_norm']:.2e} relative, worst leaf {top} {worst[top]:.2e} of its scale "
+        f"(bound {LEAF_RTOL}); launches serve {serve_l['lstm_fwd']} forward, train "
+        f"{train_l['lstm_fwd']} + {train_l['lstm_bwd']}")
+    return {"serve_err": serve_err, "loss_rel": worst["loss"], "worst_leaf": top,
+            "worst_leaf_err": worst[top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is False; this smoke test needs a CUDA card")
@@ -999,21 +1420,40 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     kernel_num = load_config(CONFIG).model.kernel_num
-    kernels = kernel_phase(dev)
-    kernels.update(block_kernel_phase(dev, kernel_num))
-    kernels.update(bwd_kernel_phase(dev, kernel_num))
-    grad_phase(dev)
-    reference_phase(dev)
-    train_reference_phase(dev)
-    unfused, outs, requests = slice_phase(dev)
-    fused = fused_slice_phase(dev, outs, requests)
-    train = train_phase(dev)
+    seconds = {"build": build_s}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    kernels = phase("kernel", kernel_phase, dev)
+    kernels.update(phase("block_kernel", block_kernel_phase, dev, kernel_num))
+    kernels.update(phase("bwd_kernel", bwd_kernel_phase, dev, kernel_num))
+    kernels.update(phase("lstm_kernel", lstm_kernel_phase, dev))
+    phase("grad", grad_phase, dev)
+    phase("reference", reference_phase, dev)
+    phase("train_reference", train_reference_phase, dev)
+    phase("crn_reference", crn_reference_phase, dev)
+    unfused, outs, requests = phase("slice", slice_phase, dev)
+    fused = phase("fused_slice", fused_slice_phase, dev, outs, requests)
+    train = phase("train", train_phase, dev)
+    crn = phase("crn_slice", crn_slice_phase, dev)
+    crn_train = phase("crn_train", crn_train_phase, dev)
+    phase("rnn_stft_mask_slice", rnn_stft_mask_slice_phase, dev)
+    log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
+        f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that is its own: the unfused serve
     # for the STFT and mask E, the fused serve for the block kernels, the
-    # fused train steps for the backward kernels
+    # fused train steps for their backward kernels, the CRN serve for the
+    # LSTM forward and the CRN train steps for the LSTM backward
     for name, entry in kernels.items():
         source = (unfused["launches"] if name in ("stft", "mask_e") else
                   fused["launches"] if name in ("conv_block", "deconv_block") else
+                  crn["launches"] if name == "lstm_fwd" else
+                  crn_train["fused"]["launches"] if name == "lstm_bwd" else
                   train["fused"]["launches"])
         entry["launches"] = source[name]
 

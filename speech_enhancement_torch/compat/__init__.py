@@ -1,5 +1,6 @@
 """Weight converters into the port's modules."""
 
-from speech_enhancement_torch.compat.jax_weights import dccrn_state_from_jax
+from speech_enhancement_torch.compat.jax_weights import (crn_state_from_jax, dccrn_state_from_jax,
+                                                         rnn_stft_mask_state_from_jax)
 
-__all__ = ["dccrn_state_from_jax"]
+__all__ = ["crn_state_from_jax", "dccrn_state_from_jax", "rnn_stft_mask_state_from_jax"]

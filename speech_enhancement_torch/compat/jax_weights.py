@@ -1,4 +1,8 @@
-"""Carry the JAX package's DCCRN weights into the port.
+"""Carry the JAX package's DCCRN, CRN and RNN STFT-mask weights into the port.
+
+``crn_state_from_jax`` and ``rnn_stft_mask_state_from_jax`` invert the JAX
+package's ``crn_from_torch_state`` / ``rnn_stft_mask_from_torch_state``
+exactly; the DCCRN converter is described below.
 
 ``dccrn_state_from_jax(params, batch_stats)`` takes the flax variable trees
 (as numpy arrays, or anything ``np.asarray`` reads) and returns a
@@ -81,4 +85,68 @@ def dccrn_state_from_jax(params: Mapping, batch_stats: Mapping) -> "OrderedDict[
     for i in range(n_dec):
         _block(sd, f"decoder.{i}", params[f"dec_{i}"], batch_stats.get(f"dec_{i}", {}),
                transposed=True)
+    return sd
+
+
+def _bn(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping, stats: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(params["scale"])
+    sd[f"{prefix}.bias"] = _t(params["bias"])
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+
+
+def _stack_layer(sd: Dict[str, torch.Tensor], name: str, params: Mapping) -> None:
+    """One flax LSTM layer -> torch ``nn.LSTM`` keys ``*_{name}`` (``name`` is
+    ``l{k}`` or ``l{k}_reverse``)."""
+    sd[f"weight_ih_{name}"] = _t(np.asarray(params["w_ih"]).T)
+    sd[f"weight_hh_{name}"] = _t(np.asarray(params["w_hh"]).T)
+    if "b_ih" in params:
+        sd[f"bias_ih_{name}"] = _t(params["b_ih"])
+        sd[f"bias_hh_{name}"] = _t(params["b_hh"])
+
+
+def crn_state_from_jax(params: Mapping, batch_stats: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax CRN (params, batch_stats) -> the port's CRN ``state_dict``: the
+    exact inverse of the JAX package's ``crn_from_torch_state``
+    (``conv_block_{i}`` Conv2d [out, in, 3, 2], ``lstm_layer.*_l{0,1}``,
+    ``tran_conv_block_{i}`` ConvTranspose2d [in, out, 3, 2] spatially
+    flipped, each block's ``norm``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for i in range(1, 6):
+        block = params[f"enc_{i}"]
+        kernel = np.asarray(block["conv"]["kernel"], dtype=np.float32)  # [3, 2, in, out]
+        sd[f"conv_block_{i}.conv.weight"] = _t(kernel.transpose(3, 2, 0, 1))
+        sd[f"conv_block_{i}.conv.bias"] = _t(block["conv"]["bias"])
+        _bn(sd, f"conv_block_{i}.norm", block["bn"], batch_stats[f"enc_{i}"]["bn"])
+    for layer in (1, 2):
+        if f"lstm{layer}" in params:
+            layer_sd: Dict[str, torch.Tensor] = {}
+            _stack_layer(layer_sd, f"l{layer - 1}", params[f"lstm{layer}"])
+            sd.update({f"lstm_layer.{k}": v for k, v in layer_sd.items()})
+    for i in range(1, 6):
+        block = params[f"dec_{i}"]
+        kernel = np.asarray(block["conv"]["kernel"], dtype=np.float32)  # [3, 2, in, out]
+        sd[f"tran_conv_block_{i}.conv.weight"] = _t(kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        sd[f"tran_conv_block_{i}.conv.bias"] = _t(block["bias"])
+        _bn(sd, f"tran_conv_block_{i}.norm", block["bn"], batch_stats[f"dec_{i}"]["bn"])
+    return sd
+
+
+def rnn_stft_mask_state_from_jax(params: Mapping, batch_stats: Mapping
+                                 ) -> "OrderedDict[str, torch.Tensor]":
+    """flax RNNSTFTMask (params, batch_stats) -> the port's ``state_dict``:
+    the exact inverse of the JAX package's ``rnn_stft_mask_from_torch_state``
+    (``rnn.*_l{k}[_reverse]``, ``batchnorm.*``, ``fc_layers.0.*``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    rnn = params["rnn"]
+    n_layers = sum(1 for key in rnn if key.endswith("_fwd"))
+    for k in range(n_layers):
+        for key, suffix in ((f"l{k}_fwd", ""), (f"l{k}_bwd", "_reverse")):
+            if key in rnn:
+                layer_sd: Dict[str, torch.Tensor] = {}
+                _stack_layer(layer_sd, f"l{k}{suffix}", rnn[key])
+                sd.update({f"rnn.{name}": v for name, v in layer_sd.items()})
+    _bn(sd, "batchnorm", params["bn"], batch_stats["bn"])
+    sd["fc_layers.0.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
+    sd["fc_layers.0.bias"] = _t(params["fc"]["bias"])
     return sd

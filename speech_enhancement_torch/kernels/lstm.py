@@ -1,0 +1,270 @@
+"""The LSTM recurrence over pre-projected inputs: CUDA wrappers and plain versions.
+
+Counterpart of speech_enhancement_tpu/ops/pallas/lstm.py (``fused_lstm``,
+``_lstm_fwd_call``, ``_lstm_bwd_call``), with the same contract:
+
+* ``x_proj`` [T, B, 4H] time-major, gate order i, f, g, o (``x @ w_ih +
+  bias``); ``w_hh`` [H, 4H]; ``h0``, ``c0`` [B, H]; all in one i/o dtype
+  (float32 or bfloat16);
+* gate math and both carries in f32; the step's product takes h rounded to
+  the i/o dtype (as stored in ``h_seq``) and accumulates in f32;
+* ``h_seq``, ``c_seq`` and ``gates`` are stored in the i/o dtype, and the
+  backward reads them so: in bf16 its gradients see the rounded gates and
+  c, as the JAX kernel's do.
+
+``lstm_fwd`` launches ``csrc/lstm_fwd.cu`` for CUDA tensors (one launch for
+all T steps, counted in ``lstm_fwd.launches``) and runs
+:func:`fused_lstm_plain` for CPU tensors; ``lstm_bwd`` does the same with
+``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Any other device raises,
+and there is no fallback from a kernel to its plain version: a width whose
+weight slice does not fit the cooperative grid raises. The kernel sources
+say what bounds them and how the weights stay resident.
+
+:func:`fused_lstm` is the autograd Function :class:`FusedLSTM` around them,
+whose backward folds ``d_h_last`` into ``d_h_seq``, runs ``lstm_bwd`` with
+``dh_T = 0`` and ``dc_T = d_c_last`` and computes ``dw_hh = h_prevᵀ
+dgates`` with one ``torch.matmul`` (XLA in the JAX package).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from speech_enhancement_torch.kernels import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _visit(steps: int, reverse: bool):
+    return range(steps - 1, -1, -1) if reverse else range(steps)
+
+
+def fused_lstm_plain(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
+                     c0: torch.Tensor, reverse: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel's arithmetic in PyTorch: (h_seq, c_seq, gates)."""
+    dtype = x_proj.dtype
+    steps, batch, g4 = x_proj.shape
+    w = w_hh.to(dtype).float()
+    h, c = h0.to(dtype), c0.to(dtype).float()
+    h_seq = x_proj.new_empty((steps, batch, g4 // 4))
+    c_seq = torch.empty_like(h_seq)
+    gates = torch.empty_like(x_proj)
+    for t in _visit(steps, reverse):
+        lin = x_proj[t].float() + torch.matmul(h.float(), w)
+        li, lf, lg, lo = lin.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(li), torch.sigmoid(lf), torch.tanh(lg), torch.sigmoid(lo)
+        c = f * c + i * g
+        h = (o * torch.tanh(c)).to(dtype)
+        h_seq[t], c_seq[t] = h, c.to(dtype)
+        gates[t] = torch.cat([i, f, g, o], dim=-1).to(dtype)
+    return h_seq, c_seq, gates
+
+
+def lstm_bwd_plain(gates: torch.Tensor, c_seq: torch.Tensor, c_prev: torch.Tensor,
+                   dout: torch.Tensor, w_hh: torch.Tensor, dh_last: torch.Tensor,
+                   dc_last: torch.Tensor, reverse: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's arithmetic in PyTorch: (dgates [T, B, 4H] in the
+    i/o dtype, dh0, dc0 [B, H] f32), walking the forward's visit order back."""
+    dtype = dout.dtype
+    steps = gates.shape[0]
+    w_t = w_hh.to(dtype).float().t()
+    dh, dc = dh_last.float(), dc_last.float()
+    dgates = torch.empty_like(gates)
+    for t in _visit(steps, not reverse):
+        i, f, g, o = gates[t].float().chunk(4, dim=-1)
+        tc = torch.tanh(c_seq[t].float())
+        dh = dh + dout[t].float()
+        d_o = dh * tc
+        dc = dc + dh * o * (1.0 - tc * tc)
+        di, df, dg = dc * g, dc * c_prev[t].float(), dc * i
+        dgt = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
+                         d_o * o * (1.0 - o)], dim=-1).to(dtype)
+        dgates[t] = dgt
+        dh = torch.matmul(dgt.float(), w_t)
+        dc = dc * f
+    return dgates, dh, dc
+
+
+# -- CUDA -------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    "lstm_fwd": ("lstm_fwd", [_I] + [_P] * 8 + [_I] * 4 + [_P]),
+    "lstm_bwd": ("lstm_bwd", [_I] + [_P] * 9 + [_I] * 4 + [_P]),
+}
+
+
+@functools.cache
+def _entry(name: str):
+    library, argtypes = _ENTRIES[name]
+    fn = getattr(_build.library(library), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_cuda(what: str, tensors) -> bool:
+    """True for CUDA tensors of one device and one supported dtype (checked);
+    False for CPU tensors; raises otherwise."""
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{what}: tensors on {sorted({str(t.device) for t in tensors})}")
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {device}")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{what} takes float32 or bfloat16 tensors of one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    return True
+
+
+def _launch(name: str, args: list, like: torch.Tensor) -> None:
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        code = _entry(name)(*args, stream)
+    _build.check(_build.library(_ENTRIES[name][0]), code, f"{name} launch")
+
+
+def _barrier(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(2, dtype=torch.int32, device=like.device)
+
+
+def _check_fwd(x_proj, w_hh, h0, c0) -> None:
+    if x_proj.dim() != 3 or x_proj.shape[-1] % 4 or x_proj.shape[0] == 0:
+        raise ValueError(f"lstm_fwd: want x_proj [T > 0, B, 4H], got {tuple(x_proj.shape)}")
+    steps, batch, g4 = x_proj.shape
+    hidden = g4 // 4
+    if w_hh.shape != (hidden, g4) or h0.shape != (batch, hidden) or c0.shape != (batch, hidden):
+        raise ValueError(f"lstm_fwd: w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}, c0 "
+                         f"{tuple(c0.shape)} for x_proj {tuple(x_proj.shape)}")
+
+
+def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+             reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(h_seq, c_seq, gates) of the recurrence, all in x_proj's dtype.
+
+    A CUDA tensor launches ``csrc/lstm_fwd.cu`` once for all T steps
+    (counted in ``lstm_fwd.launches``, and the reversed ones also in
+    ``lstm_fwd.reverse_launches``); a CPU tensor runs
+    :func:`fused_lstm_plain`. Not differentiable: use :func:`fused_lstm`.
+    """
+    _check_fwd(x_proj, w_hh, h0, c0)
+    if not _on_cuda("lstm_fwd", [x_proj, w_hh, h0, c0]):
+        return fused_lstm_plain(x_proj, w_hh, h0, c0, reverse)
+    steps, batch, g4 = x_proj.shape
+    x_proj, h0 = x_proj.contiguous(), h0.contiguous()
+    w_t = w_hh.t().contiguous()  # [4H, H]: the kernel's rows are gate columns
+    c = c0.float().contiguous().clone()
+    h_seq = x_proj.new_empty((steps, batch, g4 // 4))
+    c_seq = torch.empty_like(h_seq)
+    gates = torch.empty_like(x_proj)
+    bar = _barrier(x_proj)
+    _launch("lstm_fwd", [int(x_proj.dtype == torch.bfloat16), x_proj.data_ptr(), w_t.data_ptr(),
+                         h0.data_ptr(), c.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(),
+                         gates.data_ptr(), bar.data_ptr(), steps, batch, g4 // 4,
+                         int(reverse)], x_proj)
+    lstm_fwd.launches += 1
+    lstm_fwd.reverse_launches += int(reverse)
+    return h_seq, c_seq, gates
+
+
+def lstm_bwd(gates: torch.Tensor, c_seq: torch.Tensor, c_prev: torch.Tensor,
+             dout: torch.Tensor, w_hh: torch.Tensor, dh_last: torch.Tensor,
+             dc_last: torch.Tensor, reverse: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dgates [T, B, 4H] in the i/o dtype, dh0, dc0 [B, H] f32).
+
+    gates [T, B, 4H], c_seq, c_prev, dout [T, B, H] and w_hh [H, 4H] in one
+    i/o dtype; dh_last, dc_last [B, H] (any float dtype, read as f32). A
+    CUDA tensor launches ``csrc/lstm_bwd.cu`` once for all T steps (counted
+    in ``lstm_bwd.launches``); a CPU tensor runs :func:`lstm_bwd_plain`.
+    """
+    if gates.dim() != 3 or gates.shape[-1] % 4 or gates.shape[0] == 0:
+        raise ValueError(f"lstm_bwd: want gates [T > 0, B, 4H], got {tuple(gates.shape)}")
+    steps, batch, g4 = gates.shape
+    hidden = g4 // 4
+    seq = (steps, batch, hidden)
+    if (c_seq.shape != seq or c_prev.shape != seq or dout.shape != seq
+            or w_hh.shape != (hidden, g4) or dh_last.shape != (batch, hidden)
+            or dc_last.shape != (batch, hidden)):
+        shapes = [tuple(t.shape) for t in (c_seq, c_prev, dout, w_hh, dh_last, dc_last)]
+        raise ValueError(f"lstm_bwd: shapes {shapes} for gates {tuple(gates.shape)}")
+    if not _on_cuda("lstm_bwd", [gates, c_seq, c_prev, dout, w_hh]):
+        return lstm_bwd_plain(gates, c_seq, c_prev, dout, w_hh, dh_last, dc_last, reverse)
+    if dh_last.device != gates.device or dc_last.device != gates.device:
+        raise ValueError("lstm_bwd: dh_last and dc_last must be on the sequences' device")
+    gates, c_seq, c_prev, dout = (t.contiguous() for t in (gates, c_seq, c_prev, dout))
+    w = w_hh.contiguous()  # [H, 4H]: the kernel's rows are hidden units of dh
+    dh = dh_last.float().contiguous().clone()
+    dc = dc_last.float().contiguous().clone()
+    dgates = torch.empty_like(gates)
+    bar = _barrier(gates)
+    _launch("lstm_bwd", [int(gates.dtype == torch.bfloat16), gates.data_ptr(), c_seq.data_ptr(),
+                         c_prev.data_ptr(), dout.data_ptr(), w.data_ptr(), dh.data_ptr(),
+                         dc.data_ptr(), dgates.data_ptr(), bar.data_ptr(), steps,
+                         batch, hidden, int(reverse)], gates)
+    lstm_bwd.launches += 1
+    return dgates, dh, dc
+
+
+lstm_fwd.launches = 0
+lstm_fwd.reverse_launches = 0
+lstm_bwd.launches = 0
+
+
+def shift_prev(seq: torch.Tensor, first: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Each step's "previous" carry along time (``_shift_prev``): t-1 (t = 0:
+    ``first``) forward, t+1 (t = T-1: ``first``) reversed."""
+    if reverse:
+        return torch.cat([seq[1:], first[None]], dim=0)
+    return torch.cat([first[None], seq[:-1]], dim=0)
+
+
+class FusedLSTM(torch.autograd.Function):
+    """(h_seq, h_last, c_last) of the recurrence with exact gradients for
+    (x_proj, w_hh, h0, c0), as the JAX custom VJP of ``fused_lstm``."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, h0, c0, reverse):
+        h_seq, c_seq, gates = lstm_fwd(x_proj, w_hh, h0, c0, reverse)
+        ctx.save_for_backward(w_hh, h0, c0, h_seq, c_seq, gates)
+        ctx.reverse = reverse
+        edge = 0 if reverse else -1
+        return h_seq, h_seq[edge].clone(), c_seq[edge].clone()
+
+    @staticmethod
+    def backward(ctx, d_hseq, d_hlast, d_clast):
+        w_hh, h0, c0, h_seq, c_seq, gates = ctx.saved_tensors
+        reverse = ctx.reverse
+        edge = 0 if reverse else -1
+        d_hseq = torch.zeros_like(h_seq) if d_hseq is None else d_hseq.to(h_seq.dtype).clone()
+        if d_hlast is not None:  # h_last is h_seq[edge], rounded to the i/o dtype
+            d_hseq[edge] = d_hseq[edge] + d_hlast.to(d_hseq.dtype)
+        d_clast = torch.zeros_like(c0, dtype=torch.float32) if d_clast is None else d_clast
+        c_prev = shift_prev(c_seq, c0.to(c_seq.dtype), reverse)
+        dh_last = torch.zeros(c0.shape, dtype=torch.float32, device=c0.device)
+        dgates, dh0, dc0 = lstm_bwd(gates, c_seq, c_prev, d_hseq, w_hh, dh_last,
+                                    d_clast.float(), reverse)
+        h_prev = shift_prev(h_seq, h0.to(h_seq.dtype), reverse)
+        hidden = h_seq.shape[-1]
+        # f32 accumulation, rounded once to w_hh's dtype (cuBLAS accumulates
+        # a bf16 product in f32)
+        dw_hh = torch.matmul(h_prev.reshape(-1, hidden).t(), dgates.reshape(-1, 4 * hidden))
+        return dgates, dw_hh.to(w_hh.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype), None
+
+
+def fused_lstm(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+               reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LSTM recurrence over pre-projected inputs: (h_seq [T, B, H] in time
+    order, h_last, c_last), where h_last / c_last are h_seq / c_seq at the
+    last visited step (t = 0 when ``reverse``), in the i/o dtype.
+    Differentiable in all four tensors (:class:`FusedLSTM`)."""
+    return FusedLSTM.apply(x_proj, w_hh, h0, c0, reverse)

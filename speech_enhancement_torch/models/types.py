@@ -30,3 +30,5 @@ class SignalSpec:
 
 
 WAV_MONO = SignalSpec(domain="wav", multi_speaker=False, monarch=True)
+STFT_MONO = SignalSpec(domain="stft", multi_speaker=False, monarch=True)
+STFT_MULTI = SignalSpec(domain="stft", multi_speaker=True, monarch=False)

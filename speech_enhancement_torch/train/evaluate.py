@@ -7,7 +7,9 @@ Counterpart of speech_enhancement_tpu/train/evaluate.py:
 2. cut sliding windows of ``sample_rate * segment`` samples at stride
    ``model.win_length``, zero-filled beyond the end; the window count is
    rounded up to a multiple of ``_BUCKET``;
-3. run the model over all windows as one batch;
+3. run the model over all windows as one batch (an stft-domain model gets
+   ``stft_custom`` of the windows, and its output goes back through
+   ``istft_custom`` to ``window`` samples);
 4. stitch by overlap-discard: window 0 is kept whole, every later window
    contributes only its last ``stride`` samples;
 5. denormalise and trim to the utterance length.
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from speech_enhancement_torch.device import DeviceLike, module_device, resolve_device
 from speech_enhancement_torch.models.types import SignalSpec
+from speech_enhancement_torch.ops.stft import istft_custom, stft_custom
 
 _BUCKET = 4  # window-count granularity, as in the JAX package
 
@@ -84,11 +87,6 @@ def evaluate_utterance(
         dev = model_dev
     if model is not None and model.training:
         raise ValueError("evaluate_utterance needs the model in eval mode")
-    if spec.domain == "stft":
-        raise NotImplementedError(
-            "stft-domain models need ops/stft.py, which the DSP front-end slice "
-            "(ROADMAP queue 1, item 1) ports; DCCRN is wav-domain")
-
     model_cfg = config.model
     norm = str(config.dset.norm)
     window = int(config.dset.sample_rate * model_cfg.segment)
@@ -125,9 +123,13 @@ def evaluate_utterance(
         windows = extract_windows(x, window, stride, n_pad)  # [N, B, C, W]
         _, nbatch, nchannel, _ = windows.shape
         batched = windows.reshape(n_pad * nbatch, nchannel, window)
+        if spec.domain == "stft":
+            batched = stft_custom(batched, model_cfg)
         output = batched if model is None else model(batched)
         if spec.monarch and output.dim() == batched.dim() + 1 and output.shape[1] == 1:
             output = output[:, 0]
+        if spec.domain == "stft":
+            output = istft_custom(output, window, model_cfg)
         multi = spec.multi_speaker and model is not None
         if multi:
             n_src = num_sources or output.shape[1]

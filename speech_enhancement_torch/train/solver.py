@@ -20,6 +20,7 @@ from torch import nn
 
 from speech_enhancement_torch.device import DeviceLike, module_device, resolve_device
 from speech_enhancement_torch.models.types import SignalSpec
+from speech_enhancement_torch.ops.stft import stft_custom
 from speech_enhancement_torch.train import losses as losses_lib
 
 Batch = Union[np.ndarray, torch.Tensor, Mapping[str, Union[np.ndarray, torch.Tensor]]]
@@ -112,12 +113,18 @@ def compute_loss(loss_name: str, output: torch.Tensor, target: torch.Tensor,
 
 def train_step(model: nn.Module, spec: SignalSpec, optimizer: ClippedOptimizer,
                mixture: Batch, sources: Batch, loss_name: str = "mse", *,
-               use_pit: bool = False, device: DeviceLike = None
+               use_pit: bool = False, device: DeviceLike = None, model_config=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on the batch ``mixture`` [B, C, L] and ``sources``
     [B, S, C, L] (f32 or int16 wire). Returns ``(loss, grad_norm)`` as
     0-dim tensors on the device, not synchronised; grad_norm is the global
     norm before clipping.
+
+    The JAX Solver's ``_adapt``: a monaural model's target is the first
+    speaker; an stft-domain model (``spec.domain == "stft"``) takes
+    ``stft_custom`` of the mixture and the target, with the transform's
+    fields from ``model_config`` (the config's ``model`` section), and the
+    loss is taken on the spectrograms.
 
     ``device`` defaults to ``cuda`` and raises when no card is present; it
     must be the model's. The model is left in ``train()`` mode.
@@ -128,13 +135,15 @@ def train_step(model: nn.Module, spec: SignalSpec, optimizer: ClippedOptimizer,
         if model_dev.type != dev.type:
             raise ValueError(f"model is on {model_dev} but the step runs on {dev}")
         dev = model_dev
-    if spec.domain == "stft":
-        raise NotImplementedError(
-            "stft-domain models need ops/stft.py, which the DSP front-end slice "
-            "(ROADMAP queue 1, item 1) ports; DCCRN is wav-domain")
+    if spec.domain == "stft" and model_config is None:
+        raise ValueError("an stft-domain model's train step needs model_config (n_fft, "
+                         "hop_length, win_length) for stft_custom")
     mixture = decode_wire(mixture, dev)
     sources = decode_wire(sources, dev)
     target = sources[:, 0] if spec.monarch else sources
+    if spec.domain == "stft":
+        mixture = stft_custom(mixture, model_config)
+        target = stft_custom(target, model_config)
     model.train()
     optimizer.zero_grad()
     output = model(mixture)

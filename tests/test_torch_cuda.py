@@ -409,3 +409,92 @@ def test_small_fused_train_step_on_card_matches_cpu(card):
 def zero_grad_bias(key: str, n_blocks: int) -> bool:
     """Conv biases followed by complex BN: every block's but the last decoder's."""
     return key.endswith("_conv.bias") and not key.startswith(f"decoder.{n_blocks - 1}.")
+
+
+# -- the LSTM recurrence kernels (kernels/lstm.py) ---------------------------
+
+def _lstm_inputs(steps, batch, hidden, dtype, dev, seed=0, state=True):
+    rng = np.random.default_rng(seed)
+    x_proj = rng.standard_normal((steps, batch, 4 * hidden)).astype(np.float32)
+    w_hh = (rng.standard_normal((hidden, 4 * hidden)) / np.sqrt(hidden)).astype(np.float32)
+    h0, c0 = ((0.5 * rng.standard_normal((batch, hidden))).astype(np.float32) if state
+              else np.zeros((batch, hidden), np.float32) for _ in range(2))
+    return [torch.from_numpy(a).to(dev, dtype) for a in (x_proj, w_hh, h0, c0)]
+
+
+# (T, B, H): small widths, a ragged second batch chunk (B 70 > 64), an H not a
+# multiple of 8 (element staging), one more hidden unit than SMs (2 units a block)
+LSTM_SHAPES = [(9, 3, 32), (20, 70, 64), (13, 5, 20), (6, 4, 133)]
+# f32: the same FMA arithmetic, another summation order; bf16: sums in another
+# order flip single bf16 roundings of h and c, which the recurrence carries
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_fwd_kernel_matches_plain(card, shape, reverse, dtype):
+    from speech_enhancement_torch.kernels.lstm import fused_lstm_plain, lstm_fwd
+    args = _lstm_inputs(*shape, dtype, card, seed=sum(shape))
+    before = lstm_fwd.launches
+    got = lstm_fwd(*args, reverse)
+    want = fused_lstm_plain(*args, reverse)
+    torch.cuda.synchronize()
+    assert lstm_fwd.launches == before + 1
+    for g, w, name in zip(got, want, ("h_seq", "c_seq", "gates")):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=LSTM_TOL[dtype],
+                                   atol=LSTM_TOL[dtype], msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_bwd_kernel_matches_plain(card, shape, reverse, dtype):
+    from speech_enhancement_torch.kernels.lstm import (fused_lstm_plain, lstm_bwd,
+                                                       lstm_bwd_plain, shift_prev)
+    x_proj, w_hh, h0, c0 = _lstm_inputs(*shape, dtype, card, seed=sum(shape) + 1)
+    _, c_seq, gates = fused_lstm_plain(x_proj, w_hh, h0, c0, reverse)
+    c_prev = shift_prev(c_seq, c0, reverse)
+    rng = np.random.default_rng(7)
+    dout = torch.from_numpy(rng.standard_normal(c_seq.shape).astype(np.float32)).to(card, dtype)
+    dh_t, dc_t = (torch.from_numpy(rng.standard_normal(h0.shape).astype(np.float32)).to(card)
+                  for _ in range(2))
+    before = lstm_bwd.launches
+    got = lstm_bwd(gates, c_seq, c_prev, dout, w_hh, dh_t, dc_t, reverse)
+    want = lstm_bwd_plain(gates, c_seq, c_prev, dout, w_hh, dh_t, dc_t, reverse)
+    torch.cuda.synchronize()
+    assert lstm_bwd.launches == before + 1
+    for g, w, name in zip(got, want, ("dgates", "dh0", "dc0")):
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=LSTM_TOL[dtype],
+                                   atol=LSTM_TOL[dtype] * scale, msg=name)
+
+
+def test_fused_lstm_gradients_on_card_match_cpu(card):
+    """The autograd Function end to end in f32: kernels on the card vs the
+    plain versions on the CPU (which tests/test_torch_lstm.py holds
+    against JAX), within the JAX package's 2e-4 gradient bound."""
+    from speech_enhancement_torch.kernels.lstm import fused_lstm
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        leaves = [a.requires_grad_() for a in _lstm_inputs(11, 6, 48, torch.float32, dev, 3)]
+        out, h_last, c_last = fused_lstm(*leaves, True)
+        (torch.sin(out).sum() + torch.cos(h_last).sum() + torch.tanh(c_last).sum()).backward()
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("hidden,dtype", [(1792, torch.float32), (4096, torch.bfloat16)])
+def test_lstm_kernels_refuse_a_grid_that_does_not_fit(card, hidden, dtype):
+    """f32 weights of 1792 units (56 rows x 1792 x 4 B a block) exceed a
+    block's shared memory; 4096 units need more than 16 a block: both
+    raise instead of launching."""
+    from speech_enhancement_torch.kernels.lstm import lstm_bwd, lstm_fwd
+    x_proj, w_hh, h0, c0 = _lstm_inputs(2, 2, hidden, dtype, card, state=False)
+    with pytest.raises(RuntimeError, match="cooperative"):
+        lstm_fwd(x_proj, w_hh, h0, c0)
+    seq = torch.zeros((2, 2, hidden), dtype=dtype, device=card)
+    with pytest.raises(RuntimeError, match="cooperative"):
+        lstm_bwd(x_proj, seq, seq, seq, w_hh, h0.float(), c0.float())

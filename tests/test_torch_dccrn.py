@@ -361,8 +361,8 @@ def test_build_model_needs_cuda_or_explicit_cpu():
 
 
 def test_build_model_names_later_slices_and_seeds_weights():
-    with pytest.raises(NotImplementedError, match="LSTM-kernel slice"):
-        build_model(Config({"name": "crn"}), device="cpu")
+    with pytest.raises(NotImplementedError, match="mel-rnn slice"):
+        build_model(Config({"name": "mel-rnn"}), device="cpu")
     with pytest.raises(NotImplementedError, match="attention-kernel slice"):
         build_model(Config({"name": "sepformer"}), device="cpu")
     with pytest.raises(ValueError):

@@ -100,9 +100,10 @@ def test_multi_speaker_output_matches_jax(rng):
 def test_refuses_what_it_cannot_run(rng):
     port_cfg, _ = _configs("z-score")
     x = _mixture(rng, 1, 5000)
-    with pytest.raises(NotImplementedError, match="ops/stft.py"):
-        port_eval.evaluate_utterance(x, None, SignalSpec(domain="stft"), port_cfg,
-                                     device="cpu")
+    no_stft = Config({**port_cfg.to_dict(), "model": {
+        k: v for k, v in port_cfg.model.to_dict().items() if k != "n_fft"}})
+    with pytest.raises(AttributeError, match="n_fft"):  # an stft-domain model needs the transform
+        port_eval.evaluate_utterance(x, None, SignalSpec(domain="stft"), no_stft, device="cpu")
     with pytest.raises(ValueError, match="eval mode"):
         port_eval.evaluate_utterance(x, _TwoSources().train(), WAV_MONO, port_cfg,
                                      device="cpu")

@@ -251,6 +251,6 @@ def test_train_step_needs_cuda_or_explicit_cpu():
     batch = np.zeros((1, 1, 1600), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_step(port, port.SPEC, opt, batch, batch[:, None])
-    with pytest.raises(NotImplementedError, match="stft"):
+    with pytest.raises(ValueError, match="model_config"):  # stft_custom needs the transform
         from speech_enhancement_torch.models.types import SignalSpec
         train_step(port, SignalSpec(domain="stft"), opt, batch, batch[:, None], device="cpu")
