@@ -29,8 +29,17 @@ launches each), each held against the same weights on the plain loop
 (``fused_rnn = False``), and a small f32 CRN on the card against the CPU
 path; and rnn-stft-mask at the full width of
 ``configs/rnn_stft_mask_clarity.yaml`` serving three stereo 10 s requests
-(six forward launches each, three of them reversed). Each phase's seconds
-and the total are logged. It imports nothing of JAX.
+(six forward launches each, three of them reversed). Then Sepformer: both
+attention kernels against their plain versions at its intra (L 250) and
+inter (L 66) shapes and timed at the full serving and training batches
+beside ``F.scaled_dot_product_attention``, a small f32 Sepformer on the
+card against the CPU path, three stereo 10 s requests at the full width of
+``configs/sepformer_clarity.yaml`` (bf16, 32 forward attention launches
+each) and three train steps at its operating point (B = 4 x 4 s, two
+speakers, si-sdr with PIT; 32 forward and 32 backward launches each), each
+held against the same weights on flax's attention (``fused_attention =
+False``). Each phase's seconds and the total are logged. It imports
+nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
@@ -38,7 +47,8 @@ against the plain version, kernel / plain / library times and the least
 time the card could take; for the block kernels and their backward kernels
 each time is the sum over the model's six blocks of that kind, one launch
 each, and the error the largest of the six; the LSTM kernels' at one CRN
-layer), and as the last line
+layer; the attention kernels' at one intra-chunk layer), and as the last
+line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line is printed; so does a host without CUDA.
 """
@@ -59,6 +69,7 @@ import torch.nn.functional as F
 
 from speech_enhancement_torch.config import Config, load_config
 from speech_enhancement_torch.kernels import _build
+from speech_enhancement_torch.kernels import attention as attn_k
 from speech_enhancement_torch.kernels import conv_block as cb
 from speech_enhancement_torch.kernels import lstm as lstm_k
 from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused_conv_block_plain,
@@ -137,6 +148,32 @@ SMALL_FUSED = {"name": "dccrn", "win_len": 128, "win_inc": 32, "fft_len": 256,
 LSTM_RTOL, LSTM_ATOL, LSTM_MEAN = 2.0**-6, 2.0**-8, 4e-4
 LSTM_BWD_RTOL, LSTM_F32_TOL = 1e-2, 1e-4
 CRN_TRAIN_BATCH = 16  # configs/crn_vbd.yaml solver.batch_size, 4 s each
+SEP_CONFIG = os.path.join(ROOT, "configs", "sepformer_clarity.yaml")
+SEP_TRAIN_BATCH = 4  # configs/sepformer_clarity.yaml solver.batch_size, 4 s stereo each
+SEP_OPTIM = {"optim": "adam", "lr": 1.5e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+SEP_LAUNCHES = 2 * (8 + 8)  # attention launches a model call: 2 dual blocks x (8 + 8) layers
+# attention kernels vs their plain versions. f32: the same FMA arithmetic in
+# another order (the bf16 kernel's probabilities go through exp2, 2e-6
+# relative): forward |d| <= 1e-5 + 1e-4 |ref|, each gradient within 1e-4 of
+# its largest element. bf16: both round the same f32 values once, so a value
+# may land one bf16 step apart: forward |d| <= 2^-9 + 2^-7 |ref|, each
+# gradient within 2^-7 of its largest element.
+MHA_TOL = {torch.float32: (1e-5, 1e-4, 1e-4), torch.bfloat16: (2.0**-9, 2.0**-7, 2.0**-7)}
+MHA_SLICE = 1024  # sequences compared with the plain version (its f32 [B', H, L, L] is 2 GB)
+# (case, B', H, L, D) compared with the plain versions, and (case, B', L,
+# backward) timed at H 8, D 32: one serving request's and one train step's
+# sequences (B' = windows x chunks: 192 x 66 and 192 x 250 serving, 4 x 66
+# and 4 x 250 training)
+MHA_CHECKED = (("intra", MHA_SLICE, 8, 250, 32), ("inter", MHA_SLICE, 8, 66, 32),
+               ("ragged", 3, 2, 50, 16))
+MHA_TIMED = (("intra serve", 12672, 250, False), ("inter serve", 48000, 66, False),
+             ("intra train", 264, 250, True), ("inter train", 1000, 66, True))
+# the small f32 Sepformer on the card vs the CPU path (D 16)
+SMALL_SEP = {"name": "sepformer", "encoder_in_nchannels": 2, "encoder_out_nchannels": 64,
+             "masknet_chunksize": 50, "masknet_numlayers": 1, "intra_numlayers": 1,
+             "inter_numlayers": 1, "intra_nhead": 4, "inter_nhead": 4, "intra_dffn": 128,
+             "inter_dffn": 128, "dtype": "float32", "fused_attention": True, "segment": 0.125,
+             "sample_rate": 16000, "win_length": 512}
 # the small f32 CRN on the card vs the CPU path: n_fft 128 gives H = 256
 SMALL_CRN = {"name": "crn", "n_fft": 128, "hop_length": 32, "win_length": 128, "center": True,
              "segment": 0.25, "sample_rate": 16000, "dtype": "float32", "fused_rnn": True}
@@ -624,14 +661,17 @@ def flat_grads(model) -> torch.Tensor:
     return torch.cat([p.grad.float().flatten() for p in model.parameters()])
 
 
-def train_path(tag, dev, wire_m, wire_s, path=CONFIG, **overrides) -> dict:
+def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRAIN_OPTIM,
+               **overrides) -> dict:
     """TRAIN_STEPS steps of train_step with the config at ``path`` at full
-    width; then one step split by CUDA events and one under the profiler."""
+    width (PIT over the speakers of a multi-speaker model); then one step
+    split by CUDA events and one under the profiler."""
     cfg, model, spec = load_model(dev, path, **overrides)
-    opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
+    opt = get_optimizer(Config(optim), model.parameters())
     model_config = cfg.model if spec.domain == "stft" else None
-    step_fn = functools.partial(train_step, model, spec, opt, wire_m, wire_s, "mse", device=dev,
-                                model_config=model_config)
+    use_pit = spec.multi_speaker
+    step_fn = functools.partial(train_step, model, spec, opt, wire_m, wire_s, loss_name,
+                                use_pit=use_pit, device=dev, model_config=model_config)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, norms, times, first_grads = [], [], [], None
@@ -652,14 +692,15 @@ def train_path(tag, dev, wire_m, wire_s, path=CONFIG, **overrides) -> dict:
         fail(f"{tag} train: the loss does not fall over {TRAIN_STEPS} steps: {losses}")
     step_ms = 1e3 * statistics.median(times[1:])
 
-    mixture, target = decode_wire(wire_m, dev), decode_wire(wire_s, dev)[:, 0]
+    mixture, target = decode_wire(wire_m, dev), decode_wire(wire_s, dev)
+    target = target if use_pit else target[:, 0]
     if model_config is not None:  # the train step's stft-domain adaptation
         mixture, target = stft_custom(mixture, model_config), stft_custom(target, model_config)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     events[0].record()
     opt.zero_grad()
     out = model(mixture)
-    loss = compute_loss("mse", out, target, mixture)
+    loss = compute_loss(loss_name, out, target, mixture, use_pit=use_pit)
     events[1].record()
     loss.backward()
     events[2].record()
@@ -846,7 +887,7 @@ COUNTED = {"stft": stft_kernel, "mask_e": mask_e_kernel, "conv_block": fused_con
            "deconv_block": fused_deconv_block, "enc_bwd_gz": cb.enc_bwd_gz,
            "enc_bwd_dw": cb.enc_bwd_dw, "dec_bwd_gz": cb.dec_bwd_gz,
            "dec_bwd_dw": cb.dec_bwd_dw, "lstm_fwd": lstm_k.lstm_fwd,
-           "lstm_bwd": lstm_k.lstm_bwd}
+           "lstm_bwd": lstm_k.lstm_bwd, "mha_fwd": attn_k.mha_fwd, "mha_bwd": attn_k.mha_bwd}
 
 
 def reset_launches() -> None:
@@ -1231,10 +1272,12 @@ def crn_stage_split(model, cfg, mixture, dev) -> dict:
             "device_busy_share": busy_ms / ms["total"] if busy_ms else None, "top_kernels": top}
 
 
-def serve_family(tag, dev, path, requests, want_launches, stage_fn=None) -> dict:
-    """Serve ``requests`` with the config at ``path`` (fused_rnn as the
-    config sets it) and again with fused_rnn = False (the plain loop), the
-    same weights; checks the first run's launches and the agreement."""
+def serve_family(tag, dev, path, requests, want_launches, stage_fn=None,
+                 plain=(("fused_rnn", False),)) -> dict:
+    """Serve ``requests`` with the config at ``path`` (its kernels as the
+    config sets them) and again with the overrides ``plain`` (default
+    fused_rnn = False, the plain loop), the same weights; checks the first
+    run's launches and the agreement."""
     cfg, model, spec = load_model(dev, path)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1253,25 +1296,29 @@ def serve_family(tag, dev, path, requests, want_launches, stage_fn=None) -> dict
             fail(f"{tag}: output shape {out.shape} (want {shape}), finite {np.isfinite(out).all()}")
     stages = stage_fn(model, cfg, requests[0], dev) if stage_fn else None
     del model
-    _, plain, _ = load_model(dev, path, fused_rnn=False)
+    torch.cuda.reset_peak_memory_stats()
+    _, plain_model, _ = load_model(dev, path, **dict(plain))
     reset_launches()
-    plain_outs, plain_times = serve(plain, spec, cfg, requests, dev)
+    plain_outs, plain_times = serve(plain_model, spec, cfg, requests, dev)
+    plain_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if any(read_launches().values()):
-        fail(f"{tag}: the plain loop launched a kernel: {read_launches()}")
-    agreement = agree(outs, plain_outs, f"{tag}: kernel path vs plain loop")
-    del plain
+        fail(f"{tag}: the plain path launched a kernel: {read_launches()}")
+    agreement = agree(outs, plain_outs, f"{tag}: kernel path vs plain path")
+    del plain_model
     ms = 1e3 * statistics.mean(times[1:])
     result = {"config": os.path.relpath(path, ROOT), "params": n_params,
               "requests": len(requests), "audio_s": SECONDS,
               "request_ms": [1e3 * t for t in times], "ms_per_request": ms,
               "utt_per_s": 1e3 / ms, "rtf": ms / 1e3 / SECONDS, "peak_mem_gib": peak_gib,
               "launches": launches, "reverse_launches": reversed_launches,
-              "plain_request_ms": [1e3 * t for t in plain_times], "agreement": agreement}
+              "plain_request_ms": [1e3 * t for t in plain_times], "plain_peak_mem_gib":
+              plain_peak_gib, "agreement": agreement}
     log(f"{tag}: {n_params} params (bf16 compute), {len(requests)} requests of {SECONDS:g} s; "
         f"request ms {[round(x, 1) for x in result['request_ms']]} (first includes warm-up); "
         f"warm {ms:.1f} ms/request = {result['utt_per_s']:.2f} utt/s, RTF {result['rtf']:.4f}; "
-        f"peak {peak_gib:.2f} GiB; launches {launches}; plain loop request ms "
-        f"{[round(x, 1) for x in result['plain_request_ms']]}; kernel vs plain {agreement}")
+        f"peak {peak_gib:.2f} GiB; launches {launches}; plain path ({dict(plain)}) request ms "
+        f"{[round(x, 1) for x in result['plain_request_ms']]}, peak {plain_peak_gib:.2f} GiB; "
+        f"kernel vs plain {agreement}")
     if stages:
         result.update(stage_ms=stages["ms"], windows_per_request=stages["windows"],
                       device_busy_ms=stages["device_busy_ms"],
@@ -1397,6 +1444,294 @@ def crn_reference_phase(dev) -> dict:
             "worst_leaf_err": worst[top]}
 
 
+# -- the attention kernels and Sepformer ---------------------------------------
+
+def mha_work(batch, heads, length, depth, itemsize, backward=False):
+    """(FLOPs, bytes) of one attention launch: Q K^T and P V (forward, 4 L^2 D
+    a head), plus dP, dV, dQ and dK (backward, 10 L^2 D); q, k, v in and o
+    out (forward), q, k, v, g in and dq, dk, dv out (backward), once each."""
+    flops = (10.0 if backward else 4.0) * batch * heads * length * length * depth
+    nbytes = (7.0 if backward else 4.0) * batch * heads * depth * length * itemsize
+    return flops, nbytes
+
+
+def chunked(fn, tensors, chunk=MHA_SLICE):
+    """``fn`` over the sequences in slices of ``chunk`` (the plain versions'
+    f32 [B', H, L, L] tensors do not fit at the full serving batch)."""
+    return [fn(*(t[i:i + chunk] for t in tensors)) for i in range(0, tensors[0].shape[0], chunk)]
+
+
+def attention_kernel_phase(dev) -> dict:
+    """Both attention kernels vs their plain versions at Sepformer's intra
+    (L 250) and inter (L 66) shapes (H 8, D 32) on MHA_SLICE sequences, in
+    bf16 and f32, and at a ragged small case (L 50, D 16, B' 3, H 2); then
+    their times at the full serving B' (forward: 12,672 intra, 48,000 inter
+    sequences) and the training B' (backward: 264, 1,000), the plain
+    versions' (in slices of MHA_SLICE sequences) and, as the library
+    yardstick, F.scaled_dot_product_attention on [B', H, L, D]: forward for
+    the forward kernel, forward + backward for the backward kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(batch, heads, length, depth, dtype, n):
+        return [torch.randn(batch, heads * depth, length, device=dev, generator=gen).to(dtype)
+                for _ in range(n)]
+
+    checks = []
+    for tag, batch, heads, length, depth in MHA_CHECKED:
+        for dtype in (bf16, f32):
+            q, k, v, g = inputs(batch, heads, length, depth, dtype, 4)
+            got, want = attn_k.mha_fwd(q, k, v, heads), attn_k.fused_mha_packed_plain(q, k, v,
+                                                                                     heads)
+            grads, want_grads = attn_k.mha_bwd(q, k, v, g, heads), attn_k.mha_bwd_plain(
+                q, k, v, g, heads)
+            torch.cuda.synchronize()
+            atol, rtol, grad_tol = MHA_TOL[dtype]
+            diff = (got.float() - want.float()).abs()
+            fwd_ok = bool((diff <= atol + rtol * want.float().abs()).all())
+            rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                   for a, b in zip(grads, want_grads)]
+            row = {"case": tag, "batch": batch, "heads": heads, "length": length, "depth": depth,
+                   "dtype": str(dtype), "max_abs_err": diff.max().item(), "grad_rel_err": rel,
+                   "grad_max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                           for a, b in zip(grads, want_grads))}
+            checks.append(row)
+            log(f"attention {tag} B' {batch} H {heads} L {length} D {depth} {dtype}: forward max "
+                f"abs err {row['max_abs_err']:.3e} (|d| <= {atol:g} + {rtol:g}|ref|); dq, dk, dv "
+                f"within {[f'{r:.2e}' for r in rel]} of their largest (bound {grad_tol:g})")
+            if not fwd_ok or not max(rel) <= grad_tol:
+                fail(f"attention kernels ({tag}, {dtype}) disagree with their plain versions: "
+                     f"{row}")
+            del q, k, v, g, got, want, grads, want_grads
+
+    timed = {}
+    for tag, batch, length, backward in MHA_TIMED:
+        heads, depth = 8, 32
+        q, k, v, g = inputs(batch, heads, length, depth, bf16, 4)
+        q4, k4, v4, g4 = (t.reshape(batch, heads, depth, length).transpose(2, 3).contiguous()
+                          for t in (q, k, v, g))
+        if backward:
+            ms = cuda_ms(lambda: attn_k.mha_bwd(q, k, v, g, heads), reps=10, warmup=2)
+            plain_ms = cuda_ms(lambda: chunked(
+                lambda *t: attn_k.mha_bwd_plain(*t, heads), (q, k, v, g)), reps=2, warmup=1)
+            q4.requires_grad_(), k4.requires_grad_(), v4.requires_grad_()
+            library = cuda_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), reps=10, warmup=2)
+        else:
+            ms = cuda_ms(lambda: attn_k.mha_fwd(q, k, v, heads), reps=10, warmup=2)
+            plain_ms = cuda_ms(lambda: chunked(
+                lambda *t: attn_k.fused_mha_packed_plain(*t, heads), (q, k, v)), reps=2, warmup=1)
+            with torch.no_grad():
+                library = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps=10,
+                                  warmup=2)
+        flops, nbytes = mha_work(batch, heads, length, depth, 2, backward)
+        row = {"case": tag, "batch": batch, "heads": heads, "length": length, "depth": depth,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library, "gflop": flops / 1e9,
+               "gbytes": nbytes / 1e9, "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+               "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
+        row["bound_by"] = ("operations" if row["flops_bound_ms"] > row["bytes_bound_ms"]
+                           else "bytes")
+        timed[tag] = row
+        log(f"mha_{'bwd' if backward else 'fwd'} {tag}: B' {batch}, H 8, L {length}, D 32 bf16; "
+            f"kernel {ms:.3f} ms ({row['gbytes'] / ms:.3f} TB/s, {row['gflop'] / ms:.1f} "
+            f"TFLOP/s), plain {plain_ms:.3f} ms, F.scaled_dot_product_attention "
+            f"{'forward + backward ' if backward else ''}{library:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del q, k, v, g, q4, k4, v4, g4
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    err = {name: max(r[key] for r in checks) for name, key in (("fwd", "max_abs_err"),
+                                                               ("bwd", "grad_max_abs_err"))}
+    return {
+        "mha_fwd": {
+            "name": "mha_fwd", "route": "cuda",
+            "source": "speech_enhancement_torch/kernels/csrc/attention_fwd.cu",
+            "replaces": "speech_enhancement_tpu/ops/pallas/attention.py:115",
+            "shape": "Sepformer intra serve: B' 12672, H 8, L 250, D 32 bf16 (one layer)",
+            "tolerance": "bf16 |d| <= 2^-9 + 2^-7|ref|; f32 1e-5 + 1e-4|ref|",
+            "max_abs_err": err["fwd"], **{k: timed["intra serve"][k] for k in keys},
+            "cases": [timed["intra serve"], timed["inter serve"]], "checks": checks},
+        "mha_bwd": {
+            "name": "mha_bwd", "route": "cuda",
+            "source": "speech_enhancement_torch/kernels/csrc/attention_bwd.cu",
+            "replaces": "speech_enhancement_tpu/ops/pallas/attention.py:137",
+            "shape": "Sepformer intra train: B' 264, H 8, L 250, D 32 bf16 (one layer)",
+            "tolerance": "bf16 2^-7, f32 1e-4 of each gradient's largest",
+            "max_abs_err": err["bwd"], **{k: timed["intra train"][k] for k in keys},
+            "cases": [timed["intra train"], timed["inter train"]]},
+    }
+
+
+def sepformer_stage_split(model, cfg, mixture, dev) -> dict:
+    """CUDA-event split of one request's model call: encoder, the attention
+    modules of the intra and of the inter stacks (projections and core,
+    timed by hooks around each), the rest of the mask net, decoder."""
+    window = int(cfg.dset.sample_rate * cfg.model.segment)
+    stride = int(cfg.model.win_length)
+    x = torch.from_numpy(mixture[0]).to(dev)  # [C, T]
+    x = (x - x.mean()) / (x.std() + 1e-9)
+    n_win = -(-(x.shape[-1] - window) // stride) + 1
+    n_win = -(-n_win // 4) * 4
+    wav = extract_windows(x, window, stride, n_win).contiguous()  # [N, C, W]
+    spans = {"intra": [], "inter": []}
+    handles = []
+    for block in model.masknet.dual_mdl:
+        for kind in spans:
+            for layer in getattr(block, f"{kind}_mdl").mdl.layers:
+                def pre(module, args):
+                    module.t0 = torch.cuda.Event(enable_timing=True)
+                    module.t0.record()
+
+                def post(module, args, out, kind=kind):
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    spans[kind].append((module.t0, end))
+
+                handles += [layer.self_att.register_forward_pre_hook(pre),
+                            layer.self_att.register_forward_hook(post)]
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            for kind in spans:
+                spans[kind].clear()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            events[0].record()
+            mix_w = model.encode(wav)
+            events[1].record()
+            mask = model.mask(mix_w)
+            events[2].record()
+            out = model.decode(mix_w, mask, window)
+            events[3].record()
+            torch.cuda.synchronize()
+    for handle in handles:
+        handle.remove()
+    attention = {kind: sum(a.elapsed_time(b) for a, b in pairs) for kind, pairs in spans.items()}
+    ms = {"encoder": events[0].elapsed_time(events[1]),
+          "intra attention": attention["intra"], "inter attention": attention["inter"],
+          "mask net rest": events[1].elapsed_time(events[2]) - sum(attention.values()),
+          "decoder": events[2].elapsed_time(events[3]),
+          "total": events[0].elapsed_time(events[3])}
+    if out.shape != (n_win, model.num_spk) + tuple(wav.shape[1:]) or not torch.isfinite(out).all():
+        fail(f"Sepformer stage split: output {tuple(out.shape)}, finite "
+             f"{bool(torch.isfinite(out).all())}")
+
+    def call():
+        with torch.inference_mode():
+            model(wav)
+
+    busy_ms, top = device_busy(call)
+    return {"windows": n_win, "ms": ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / ms["total"] if busy_ms else None, "top_kernels": top}
+
+
+def sepformer_slice_phase(dev) -> dict:
+    """configs/sepformer_clarity.yaml at full width (bf16, fused_attention)
+    serving three stereo 10 s requests (32 forward attention launches each),
+    held against the same weights on flax's attention (fused_attention =
+    False)."""
+    rng = np.random.default_rng(SEED)
+    n = int(SECONDS * 16000)
+    requests = [np.concatenate([utterance(rng, n), utterance(rng, n)], axis=1)
+                for _ in range(N_REQUESTS)]
+    return serve_family("sepformer serve", dev, SEP_CONFIG, requests,
+                        {"mha_fwd": SEP_LAUNCHES * N_REQUESTS}, sepformer_stage_split,
+                        plain=(("fused_attention", False),))
+
+
+def sepformer_train_batch():
+    """configs/sepformer_clarity.yaml's operating point: 4 stereo mixtures of
+    4 s, each the sum of two speech-like stereo sources plus noise, made with
+    numpy: (mixture [4, 2, n], sources [4, 2, 2, n])."""
+    rng = np.random.default_rng(SEED + 10)
+    n = int(TRAIN_SECONDS * 16000)
+    sources = np.stack([np.stack([np.concatenate([utterance(rng, n)[0] for _ in range(2)])
+                                  for _ in range(2)]) for _ in range(SEP_TRAIN_BATCH)])
+    mixture = sources.sum(axis=1) + 0.05 * rng.standard_normal((SEP_TRAIN_BATCH, 2, n))
+    return mixture.astype(np.float32), sources.astype(np.float32)
+
+
+def sepformer_train_phase(dev) -> dict:
+    """Three Sepformer train steps at the config's operating point (si-sdr
+    with PIT, Adam 1.5e-4, clip 5) with the attention kernels (32 forward
+    and 32 backward launches a step), held on the first step against flax's
+    attention (fused_attention = False)."""
+    mixture, sources = sepformer_train_batch()
+    fused, g_fused = train_path("sepformer", dev, mixture, sources, SEP_CONFIG, "si-sdr",
+                                SEP_OPTIM)
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(mha_fwd=SEP_LAUNCHES * TRAIN_STEPS, mha_bwd=SEP_LAUNCHES * TRAIN_STEPS)
+    if fused["launches"] != want:
+        fail(f"sepformer train: launches {fused['launches']}, want {want}")
+    plain, g_plain = train_path("sepformer, flax attention", dev, mixture, sources, SEP_CONFIG,
+                                "si-sdr", SEP_OPTIM, fused_attention=False)
+    if any(plain["launches"].values()):
+        fail(f"sepformer train, flax attention: launched {plain['launches']}")
+    loss_rel = abs(fused["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    norm_rel = abs(fused["grad_norms"][0] - plain["grad_norms"][0]) / plain["grad_norms"][0]
+    cosine = F.cosine_similarity(g_fused, g_plain, dim=0).item()
+    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
+    log(f"sepformer train: kernels vs flax attention, first step: loss {loss_rel:.2e} relative "
+        f"(bound {TRAIN_LOSS_RTOL}), grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), "
+        f"gradient cosine {cosine:.6f} (bound {TRAIN_MIN_COSINE})")
+    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < TRAIN_MIN_COSINE:
+        fail(f"sepformer train: kernel and flax-attention first steps disagree: {agreement}")
+    return {"fused": fused, "plain": plain, "first_step_agreement": agreement}
+
+
+def sepformer_reference_phase(dev) -> dict:
+    """The small f32 Sepformer (D 16) with the attention kernels on the card
+    vs the CPU path, which the CPU tests hold against JAX: a served stereo
+    utterance within F32_ATOL, then one si-sdr PIT train step (every
+    gradient and updated leaf within LEAF_RTOL of its scale; Adam moves a
+    parameter by up to lr whatever its gradient: 2 lr more)."""
+    cfg = Config({"model": SMALL_SEP, "dset": {"sample_rate": 16000, "norm": "z-score"}})
+    rng = np.random.default_rng(SEED + 11)
+    wav = np.concatenate([utterance(rng, 12000), utterance(rng, 12000)], axis=1)
+    sources = (0.5 * rng.standard_normal((2, 2, 2, 2000))).astype(np.float32)
+    mixture = sources.sum(axis=1)
+    results = []
+    for device in (dev, "cpu"):
+        model, spec = build_model(cfg.model, device=device,
+                                  generator=torch.Generator().manual_seed(8))
+        reset_launches()
+        served = evaluate_utterance(wav, model, spec, cfg, device=device)
+        serve_launches = read_launches()
+        opt = get_optimizer(Config(SEP_OPTIM), model.parameters())
+        reset_launches()
+        loss, norm = train_step(model, spec, opt, mixture, sources, "si-sdr", use_pit=True,
+                                device=device)
+        results.append((served, serve_launches, float(loss), float(norm), read_launches(),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (served_c, serve_l, loss_c, norm_c, train_l, grads_c, state_c), (
+        served_p, _, loss_p, norm_p, _, grads_p, state_p) = results
+    serve_err = float(np.abs(served_c - served_p).max())
+    if served_c.shape != (1, 2, 2, 12000) or not np.isfinite(served_c).all() or (
+            serve_err > F32_ATOL):
+        fail(f"small f32 Sepformer served on the card vs CPU: shape {served_c.shape}, max abs "
+             f"err {serve_err} (bound {F32_ATOL})")
+    if serve_l["mha_fwd"] != 2 or train_l["mha_fwd"] != 2 or train_l["mha_bwd"] != 2:
+        fail(f"small f32 Sepformer launches: serve {serve_l}, train step {train_l}")
+    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
+             "grad_norm": abs(norm_c - norm_p) / norm_p}
+    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
+                                  ("state", state_c, state_p, 2 * SEP_OPTIM["lr"])):
+        for key in ref:
+            leaf = max(ref[key].abs().max().item(), 1e-12)
+            worst[f"{what} {key}"] = ((got[key] - ref[key]).abs().max().item() - extra) / leaf
+    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
+    if bad:
+        fail(f"small f32 Sepformer train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
+    top = max(worst, key=worst.get)
+    log(f"sepformer reference: small f32 Sepformer (D 16) card vs CPU: served max abs err "
+        f"{serve_err:.2e} (bound {F32_ATOL}); one train step loss {worst['loss']:.2e}, grad norm "
+        f"{worst['grad_norm']:.2e} relative, worst leaf {top} {worst[top]:.2e} of its scale "
+        f"(bound {LEAF_RTOL}); launches serve {serve_l['mha_fwd']} forward, train "
+        f"{train_l['mha_fwd']} + {train_l['mha_bwd']}")
+    return {"serve_err": serve_err, "loss_rel": worst["loss"], "worst_leaf": top,
+            "worst_leaf_err": worst[top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is False; this smoke test needs a CUDA card")
@@ -1433,27 +1768,34 @@ def main() -> int:
     kernels.update(phase("block_kernel", block_kernel_phase, dev, kernel_num))
     kernels.update(phase("bwd_kernel", bwd_kernel_phase, dev, kernel_num))
     kernels.update(phase("lstm_kernel", lstm_kernel_phase, dev))
+    kernels.update(phase("attention_kernel", attention_kernel_phase, dev))
     phase("grad", grad_phase, dev)
     phase("reference", reference_phase, dev)
     phase("train_reference", train_reference_phase, dev)
     phase("crn_reference", crn_reference_phase, dev)
+    phase("sepformer_reference", sepformer_reference_phase, dev)
     unfused, outs, requests = phase("slice", slice_phase, dev)
     fused = phase("fused_slice", fused_slice_phase, dev, outs, requests)
     train = phase("train", train_phase, dev)
     crn = phase("crn_slice", crn_slice_phase, dev)
     crn_train = phase("crn_train", crn_train_phase, dev)
     phase("rnn_stft_mask_slice", rnn_stft_mask_slice_phase, dev)
+    sep = phase("sepformer_slice", sepformer_slice_phase, dev)
+    sep_train = phase("sepformer_train", sepformer_train_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that is its own: the unfused serve
     # for the STFT and mask E, the fused serve for the block kernels, the
     # fused train steps for their backward kernels, the CRN serve for the
-    # LSTM forward and the CRN train steps for the LSTM backward
+    # LSTM forward and the CRN train steps for the LSTM backward, the
+    # Sepformer serve and train steps for the attention forward and backward
     for name, entry in kernels.items():
         source = (unfused["launches"] if name in ("stft", "mask_e") else
                   fused["launches"] if name in ("conv_block", "deconv_block") else
                   crn["launches"] if name == "lstm_fwd" else
                   crn_train["fused"]["launches"] if name == "lstm_bwd" else
+                  sep["launches"] if name == "mha_fwd" else
+                  sep_train["fused"]["launches"] if name == "mha_bwd" else
                   train["fused"]["launches"])
         entry["launches"] = source[name]
 

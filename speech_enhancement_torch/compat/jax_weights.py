@@ -1,8 +1,10 @@
-"""Carry the JAX package's DCCRN, CRN and RNN STFT-mask weights into the port.
+"""Carry the JAX package's DCCRN, CRN, RNN STFT-mask and Sepformer weights into the port.
 
-``crn_state_from_jax`` and ``rnn_stft_mask_state_from_jax`` invert the JAX
-package's ``crn_from_torch_state`` / ``rnn_stft_mask_from_torch_state``
-exactly; the DCCRN converter is described below.
+``crn_state_from_jax``, ``rnn_stft_mask_state_from_jax`` and
+``sepformer_state_from_jax`` invert the JAX package's
+``crn_from_torch_state`` / ``rnn_stft_mask_from_torch_state`` /
+``sepformer_from_torch_state`` exactly; the DCCRN converter is described
+below.
 
 ``dccrn_state_from_jax(params, batch_stats)`` takes the flax variable trees
 (as numpy arrays, or anything ``np.asarray`` reads) and returns a
@@ -149,4 +151,68 @@ def rnn_stft_mask_state_from_jax(params: Mapping, batch_stats: Mapping
     _bn(sd, "batchnorm", params["bn"], batch_stats["bn"])
     sd["fc_layers.0.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
     sd["fc_layers.0.bias"] = _t(params["fc"]["bias"])
+    return sd
+
+
+def _transformer_block(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping) -> None:
+    """flax SBTransformerBlock -> the reference's ``{prefix}.layers.{j}.*`` and
+    ``{prefix}.norm.norm.*`` (torch ``nn.MultiheadAttention`` packing: query,
+    key and value rows stacked in ``in_proj_weight`` [3E, E])."""
+    def ln(key, tree):
+        sd[f"{key}.norm.weight"] = _t(tree["scale"])
+        sd[f"{key}.norm.bias"] = _t(tree["bias"])
+
+    n_layers = sum(1 for key in params if key.startswith("layer_"))
+    for j in range(n_layers):
+        layer, p = params[f"layer_{j}"], f"{prefix}.layers.{j}"
+        mha = layer["mha"]
+        embed = np.asarray(mha["query"]["kernel"]).shape[0]
+        sd[f"{p}.self_att.att.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(mha[n]["kernel"]).reshape(embed, -1).T for n in ("query", "key", "value")]))
+        sd[f"{p}.self_att.att.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(mha[n]["bias"]).reshape(-1) for n in ("query", "key", "value")]))
+        sd[f"{p}.self_att.att.out_proj.weight"] = _t(
+            np.asarray(mha["out"]["kernel"]).reshape(-1, embed).T)
+        sd[f"{p}.self_att.att.out_proj.bias"] = _t(mha["out"]["bias"])
+        for name, key in (("ffn1", "0"), ("ffn2", "3")):
+            sd[f"{p}.pos_ffn.ffn.{key}.weight"] = _t(np.asarray(layer[name]["kernel"]).T)
+            sd[f"{p}.pos_ffn.ffn.{key}.bias"] = _t(layer[name]["bias"])
+        ln(f"{p}.norm1", layer["ln1"])
+        ln(f"{p}.norm2", layer["ln2"])
+    ln(f"{prefix}.norm", params["norm"])
+
+
+def sepformer_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax Sepformer params -> the port's Sepformer ``state_dict``: the exact
+    inverse of the JAX package's ``sepformer_from_torch_state`` (Conv1d /
+    1x1-conv / Conv2d kernels transposed back, the decoder's
+    ConvTranspose1d kernel [in, out, K] flipped in time, gLN gamma / beta as
+    ``weight`` / ``bias``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def kernel(tree):
+        return np.asarray(tree["kernel"], dtype=np.float32)
+
+    def gln(key, tree):
+        sd[f"{key}.weight"] = _t(tree["gamma"])
+        sd[f"{key}.bias"] = _t(tree["beta"])
+
+    sd["encoder.conv1d.weight"] = _t(kernel(params["encoder"]).transpose(2, 1, 0))
+    gln("masknet.norm", params["input_norm"])
+    sd["masknet.conv1d.weight"] = _t(kernel(params["input_proj"]).T[:, :, None])
+    n_blocks = sum(1 for key in params if key.startswith("dual_"))
+    for i in range(n_blocks):
+        block, p = params[f"dual_{i}"], f"masknet.dual_mdl.{i}"
+        _transformer_block(sd, f"{p}.intra_mdl.mdl", block["intra"])
+        _transformer_block(sd, f"{p}.inter_mdl.mdl", block["inter"])
+        gln(f"{p}.intra_norm", block["intra_norm"])
+        gln(f"{p}.inter_norm", block["inter_norm"])
+    sd["masknet.prelu.weight"] = _t(params["prelu"]["alpha"])
+    sd["masknet.conv2d.weight"] = _t(kernel(params["spk_expand"]).T[:, :, None, None])
+    sd["masknet.conv2d.bias"] = _t(params["spk_expand"]["bias"])
+    for name in ("output", "output_gate"):
+        sd[f"masknet.{name}.0.weight"] = _t(kernel(params[name]).transpose(2, 1, 0))
+        sd[f"masknet.{name}.0.bias"] = _t(params[name]["bias"])
+    sd["masknet.end_conv1x1.weight"] = _t(kernel(params["end_proj"]).T[:, :, None])
+    sd["decoder.weight"] = _t(kernel(params["decoder"]).transpose(1, 2, 0)[:, :, ::-1])
     return sd

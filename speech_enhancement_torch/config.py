@@ -91,6 +91,18 @@ def load_yaml(path: str) -> Config:
 # JAX package's config._DEFAULTS for these sections).
 _DEFAULTS: Dict[str, Any] = {
     "seed": 10,
+    "optim": {
+        "load": False,
+        "optim": "adam",
+        "lr": 3e-4,
+        "beta1": 0.9,
+        "beta2": 0.999,
+        "momentum": 0.9,
+        "loss": "mse",
+        "clip_grad": 5.0,
+        "pit": False,
+        "pit_discard_compat": False,
+    },
     "model": {
         "name": "dnn",
         "audio_channels": 1,

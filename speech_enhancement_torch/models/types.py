@@ -32,3 +32,4 @@ class SignalSpec:
 WAV_MONO = SignalSpec(domain="wav", multi_speaker=False, monarch=True)
 STFT_MONO = SignalSpec(domain="stft", multi_speaker=False, monarch=True)
 STFT_MULTI = SignalSpec(domain="stft", multi_speaker=True, monarch=False)
+WAV_MULTI = SignalSpec(domain="wav", multi_speaker=True, monarch=False)

@@ -498,3 +498,127 @@ def test_lstm_kernels_refuse_a_grid_that_does_not_fit(card, hidden, dtype):
     seq = torch.zeros((2, 2, hidden), dtype=dtype, device=card)
     with pytest.raises(RuntimeError, match="cooperative"):
         lstm_bwd(x_proj, seq, seq, seq, w_hh, h0.float(), c0.float())
+
+
+# -- the attention kernels (kernels/attention.py) ----------------------------
+
+def _mha_inputs(batch, heads, length, depth, dtype, dev, seed=0, n=3):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((batch, heads * depth, length),
+                                                 dtype=np.float32)).to(dev, dtype)
+            for _ in range(n)]
+
+
+# (B, H, L, D): ragged (L, D off every tile), Sepformer's intra and inter
+# chunks, the small Sepformer's depth 8, a depth between tile sizes, and a
+# head block of D * L = 444 elements (bf16: not whole 16-byte vectors, and
+# every other block unaligned: the element-wise staging)
+MHA_SHAPES = [(3, 2, 50, 16), (4, 8, 250, 32), (8, 8, 66, 32), (2, 4, 37, 8), (2, 2, 40, 24),
+              (2, 2, 37, 12)]
+# f32: the same FMA arithmetic in another order (the bf16 kernel's probabilities
+# go through exp2, 2e-6 relative); bf16: both round the same f32 values once,
+# so a value may land one bf16 step (2^-8 relative) apart
+MHA_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0**-9, 2.0**-7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MHA_SHAPES)
+def test_attention_kernels_match_plain(card, shape, dtype):
+    from speech_enhancement_torch.kernels.attention import (fused_mha_packed_plain, mha_bwd,
+                                                            mha_bwd_plain, mha_fwd)
+    batch, heads, length, depth = shape
+    q, k, v, g = _mha_inputs(*shape, dtype, card, seed=sum(shape), n=4)
+    before = (mha_fwd.launches, mha_bwd.launches)
+    got = mha_fwd(q, k, v, heads)
+    want = fused_mha_packed_plain(q, k, v, heads)
+    grads = mha_bwd(q, k, v, g, heads)
+    want_grads = mha_bwd_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert (mha_fwd.launches, mha_bwd.launches) == (before[0] + 1, before[1] + 1)
+    atol, rtol = MHA_TOL[dtype]
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for got_g, want_g, name in zip(grads, want_grads, ("dq", "dk", "dv")):
+        scale = want_g.float().abs().max().item()
+        torch.testing.assert_close(got_g.float(), want_g.float(), rtol=rtol,
+                                   atol=atol * max(scale, 1.0), msg=name)
+
+
+def test_fused_mha_gradients_on_card_match_cpu(card):
+    """The autograd Function end to end in f32 on the [B, H, L, D] adapter:
+    kernels on the card vs the plain versions on the CPU (which
+    tests/test_torch_attention.py holds against JAX)."""
+    from speech_enhancement_torch.kernels.attention import fused_mha
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal((2, 3, 50, 16)).astype(np.float32) for _ in range(3)]
+    results = []
+    for dev in (card, torch.device("cpu")):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+        out = fused_mha(*leaves)
+        torch.sin(out).sum().backward()
+        results.append([out.detach().cpu()] + [leaf.grad.cpu() for leaf in leaves])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    """A depth over 64, and a bf16 backward at L 400 (its staging exceeds a
+    block's shared memory), raise instead of launching."""
+    from speech_enhancement_torch.kernels.attention import mha_bwd, mha_fwd
+    q = _mha_inputs(1, 1, 20, 80, torch.bfloat16, card, n=1)[0]
+    with pytest.raises(RuntimeError, match="launch"):
+        mha_fwd(q, q, q, 1)
+    q = _mha_inputs(1, 2, 400, 32, torch.bfloat16, card, n=1)[0]
+    with pytest.raises(RuntimeError, match="launch"):
+        mha_bwd(q, q, q, q, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mha_fwd(q.half(), q.half(), q.half(), 2)
+
+
+SMALL_SEPFORMER = {"name": "sepformer", "encoder_in_nchannels": 2, "encoder_out_nchannels": 64,
+                   "masknet_chunksize": 50, "masknet_numlayers": 1, "intra_numlayers": 1,
+                   "inter_numlayers": 1, "intra_nhead": 4, "inter_nhead": 4, "intra_dffn": 128,
+                   "inter_dffn": 128, "dtype": "float32", "fused_attention": True,
+                   "segment": 0.125, "sample_rate": 16000, "win_length": 512}
+
+
+def test_small_sepformer_on_card_matches_cpu(card):
+    """The small f32 Sepformer (D 16) with the attention kernels on the card vs
+    the same weights on the CPU path: served within 2e-4, then one si-sdr PIT
+    train step, every gradient and updated parameter within 2e-3 of its
+    leaf's scale (Adam: 2 lr more on the parameters)."""
+    from speech_enhancement_torch.kernels.attention import mha_bwd, mha_fwd
+    cfg = with_defaults(Config({"model": SMALL_SEPFORMER,
+                                "dset": {"sample_rate": 16000, "norm": "z-score",
+                                         "audio_channels": 2}}))
+    rng = np.random.default_rng(9)
+    wav = (0.3 * rng.standard_normal((1, 2, 5000))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, 2, 2, 2000))).astype(np.float32)
+    mixture = sources.sum(axis=1)
+    optim = {"optim": "adam", "lr": 1.5e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+    results = []
+    for dev in (card, torch.device("cpu")):
+        model, spec = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(4))
+        before = mha_fwd.launches
+        served = evaluate_utterance(wav, model, spec, cfg, device=dev)
+        served_launches = mha_fwd.launches - before
+        opt = get_optimizer(Config(optim), model.parameters())
+        before = (mha_fwd.launches, mha_bwd.launches)
+        loss, norm = train_step(model, spec, opt, mixture, sources, "si-sdr", use_pit=True,
+                                device=dev)
+        launches = (mha_fwd.launches - before[0], mha_bwd.launches - before[1])
+        results.append((served, served_launches, launches, float(loss), float(norm),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (served_c, serve_l, train_l, loss_c, norm_c, grads_c, state_c), (
+        served_p, serve_p, train_p, loss_p, norm_p, grads_p, state_p) = results
+    assert (serve_l, train_l) == (2, (2, 2)) and (serve_p, train_p) == (0, (0, 0))
+    assert served_c.shape == (1, 2, 2, 5000) and np.isfinite(served_c).all()
+    np.testing.assert_allclose(served_c, served_p, atol=2e-4)
+    np.testing.assert_allclose(loss_c, loss_p, rtol=2e-3)
+    np.testing.assert_allclose(norm_c, norm_p, rtol=2e-3)
+    for key in grads_p:
+        _leaf_close(grads_c[key], grads_p[key])
+        scale = max(state_p[key].abs().max().item(), 1e-8)
+        err = (state_c[key] - state_p[key]).abs().max().item()
+        assert err <= 2e-3 * scale + 2 * optim["lr"], (key, err, scale)

@@ -363,8 +363,8 @@ def test_build_model_needs_cuda_or_explicit_cpu():
 def test_build_model_names_later_slices_and_seeds_weights():
     with pytest.raises(NotImplementedError, match="mel-rnn slice"):
         build_model(Config({"name": "mel-rnn"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="attention-kernel slice"):
-        build_model(Config({"name": "sepformer"}), device="cpu")
+    with pytest.raises(NotImplementedError, match="rest of the zoo"):
+        build_model(Config({"name": "conv-tasnet"}), device="cpu")
     with pytest.raises(ValueError):
         build_model(Config({"name": "no-such-model"}), device="cpu")
     fused, _ = build_model(Config({"name": "dccrn", **SMALL, "use_fused_blocks": True}),

@@ -80,7 +80,8 @@ def test_wrappers_reject_bad_inputs():
 def test_build_lists_sources_and_hashes_them():
     srcs = _build.sources()
     assert set(srcs) == {"stft", "masking", "conv_block", "deconv_block", "conv_block_bwd",
-                         "deconv_block_bwd", "lstm_fwd", "lstm_bwd"}
+                         "deconv_block_bwd", "lstm_fwd", "lstm_bwd", "attention_fwd",
+                         "attention_bwd"}
     path = _build.library_path("stft")
     assert path.parent == _build.BUILD and path.suffix == ".so"
     assert path == _build.library_path("stft")  # stable for unchanged sources
