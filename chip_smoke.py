@@ -1143,10 +1143,12 @@ def lstm_kernel_phase(dev) -> dict:
         row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
         row["bound_by"] = ("operations" if row["flops_bound_ms"] > row["bytes_bound_ms"]
                            else "bytes")
+        row["us_per_step"] = row["ms"] * 1e3 / steps
         rows.append(row)
         log(f"lstm_fwd {tag}: T {steps}, B {batch}, H {hidden} bf16; max abs "
-            f"err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms "
-            f"({row['gflop'] / row['ms']:.2f} TFLOP/s), plain {row['plain_ms']:.3f} ms, cuDNN "
+            f"err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms = "
+            f"{row['us_per_step']:.2f} us a step ({row['gflop'] / row['ms']:.2f} TFLOP/s), "
+            f"plain {row['plain_ms']:.3f} ms, cuDNN "
             f"nn.LSTM forward ({in_dim} -> {hidden}) {library:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         del args, cudnn, x

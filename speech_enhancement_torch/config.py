@@ -147,5 +147,7 @@ def validate(config: Config) -> None:
         raise ValueError("model.n_fft and model.hop_length must be positive")
     if model.win_length > model.n_fft:
         raise ValueError("model.win_length must be <= model.n_fft")
+    if config.optim.optim not in ("adam", "sgd", "adamw"):
+        raise ValueError(f"unknown optimizer {config.optim.optim!r}")
     if config.dset.norm not in ("z-score", "linear-scale", None, "", "none"):
         raise ValueError(f"unknown normalization {config.dset.norm!r}")

@@ -24,6 +24,10 @@
 // A grid-wide barrier (grid_sync: an arrival counter and a generation word
 // in device memory, __threadfence() before arriving and after leaving)
 // separates the steps that exchange data between blocks.
+// The forward's bf16 path with 16-byte rows does not use gemm_chunk: it
+// streams h_prev through a cp.async ring and runs its gate math from the
+// mma registers (lstm_fwd.cu, lstm_fwd_ring); it shares the grid barrier,
+// the unit split and the cooperative launch below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -304,8 +308,8 @@ inline int units_per_block(int hidden, int sms) {
 // Cooperative launch of kernel(args, plan) on `blocks` blocks, after
 // checking that they all fit on the card at once (a grid barrier over
 // blocks that are not all resident would never return).
-template <typename Args>
-int launch(void (*kernel)(Args, Plan), const Args& args, const Plan& plan, int blocks,
+template <typename Args, typename P>
+int launch(void (*kernel)(Args, P), const Args& args, const P& plan, int blocks,
            cudaStream_t stream) {
   int dev = 0, sms = 0, optin = 0, occupancy = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -321,7 +325,7 @@ int launch(void (*kernel)(Args, Plan), const Args& args, const Plan& plan, int b
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occupancy * sms < blocks) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   Args a = args;
-  Plan p = plan;
+  P p = plan;
   void* params[] = {&a, &p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks), dim3(THREADS),
                                     params, static_cast<size_t>(plan.smem_bytes), stream);

@@ -18,18 +18,59 @@
 // TB/s, so operations bound it. At the train batch (B 16) the bound is
 // 0.21 ms, but the T steps are sequential: each needs all of the step
 // before, so the step's latency (a barrier and a [B, H] x [H, 4H] product
-// spread over the card) bounds it, not the rates.
+// spread over the card) bounds it, not the rates. In this design every
+// block also rereads all of h_prev from L2 each step (91 MB a step at
+// B 192).
 //
 // Design (lstm.cuh): the TPU kernel holds the whole w_hh (25.7 MB in bf16
 // at H 1792) in VMEM. Here it is split by hidden unit over one block per
 // SM: a block owns U units and their four gate columns, 4U rows of w_hhᵀ
-// (U 14: 56 x 1792 bf16 = 200,704 B of its 227 KB of shared memory), read
+// (U 14: 56 x 1800 bf16 = 201,600 B of its 227 KB of shared memory), read
 // from device memory once. Each step it multiplies its rows by the whole
 // h_prev (from L2), and the gate math and the c update stay inside the
-// block, with c carried in f32 in device memory that only this block
-// touches. One grid barrier a step publishes h_t. A width whose slice does
+// block. One grid barrier a step publishes h_t. A width whose slice does
 // not fit (f32 beyond about 1250 units, or more than 16 units a block) is
 // refused with cudaErrorCooperativeLaunchTooLarge rather than launched.
+//
+// The bf16 path with 16-byte rows (lstm_fwd_ring; H % 8 == 0 and aligned
+// h0, h_seq) is built around the step's latency. A step is a sequence of
+// rounds, each a [NB columns x KC] slab of h_prev; a warp owns NTW column
+// tiles of 8 and all of the slice's rows, so its accumulators hold a batch
+// chunk's whole product. What each latency sink of the first design
+// became:
+//  - staging: a ring of 3 slabs filled by cp.async.cg (16 bytes a copy,
+//    zero-filled past B and H), one commit group a round; while a round is
+//    multiplied the next two are in flight, and the ring runs on across
+//    batch chunks, so it fills only once a step, after the grid barrier.
+//    Each warp copies only the rows and k16 steps it multiplies, so a
+//    warp barrier, not a block barrier, publishes a slab and the warps do
+//    not wait on each other between rounds. Rows are padded by 16 bytes,
+//    which keeps ldmatrix free of bank conflicts. KC is a power of two, so
+//    a lane copies one fixed 16-byte column and the copy loop holds no
+//    division.
+//  - fragments: ldmatrix.x4 for A (the slice) and .x4 / .x2 for B (the
+//    slab, stored [n][k], so no .trans), one instruction where there were
+//    four or two scalar loads, and the next k16 step's fragments are
+//    loaded before the current step's mma.sync.
+//  - epilogue: the slice's rows are laid out in the mma's row space as
+//    m-tile k = gate k, row r = unit r (U > 8), or two gates a tile, rows
+//    g and g + 8 (U <= 8), so each thread holds i, f, g and o of its units
+//    at its columns: the gate math runs from registers, and x_proj and
+//    the f32 carry are loaded at the start of the chunk's K loop (the
+//    first chunk's before the grid barrier), so their latency hides
+//    behind the products. Only where a batch is too narrow for the eight
+//    warps (B < 64) do warps split K, and their partials meet once a step
+//    in shared memory.
+//  - barrier: one grid_sync a step, as before.
+// What bounds it as built (tools/lstm_fwd_phase_probe.py, H100 80GB HBM3
+// at 700 W): the rounds, not the copies' latency. At B 192 the slice
+// leaves 30.8 KB, so a round is 192 columns x 16 k (112 a step); the
+// rounds' copy issue, k16 steps of products and loop take nine tenths of
+// the step, waiting for a landed slab under a tenth. Fewer, larger rounds
+// are the next lever.
+// The f32 path, and bf16 rows that are not 16-byte aligned, keep the first
+// design (lstm_fwd_kernel: gemm_chunk's register-staged chunks and an f32
+// output buffer in shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,16 +159,453 @@ __global__ void __launch_bounds__(lstm::THREADS)
   }
 }
 
+// -- the bf16 ring path ------------------------------------------------------
+
+namespace ring {
+
+using bf16 = __nv_bfloat16;
+constexpr int THREADS = lstm::THREADS;
+constexpr int WARPS = lstm::WARPS;
+constexpr int STAGES = 3;     // slabs in the ring: one multiplied, two in flight
+constexpr int SPAD = 8;       // slab and slice row padding (elements): ldmatrix without conflicts
+constexpr int MAX_KC = 256;   // k per round
+
+// Computed on the host from the shapes (make_plan below).
+struct Plan {
+  int units;        // U
+  int mt;           // m16 tiles: 4 (a gate a tile, U 9..16) or 2 (two gates a tile, U <= 8)
+  int rows;         // slice rows in shared memory: 4U (gate * U + unit)
+  int hp;           // H rounded up to 16: the K of the products
+  int pitch;        // slice row pitch (elements): hp + SPAD
+  int nb;           // batch columns a chunk: wn * ntw * 8
+  int kc;           // k a round (a multiple of 16)
+  int spitch;       // slab row pitch (elements): kc + SPAD
+  int kr;           // rounds a chunk: ceil(hp / kc)
+  int chunks;       // batch chunks a step
+  int ntw;          // n8 column tiles a warp owns in a chunk
+  int wn;           // warps along the columns
+  int splits;       // warps along K (1 unless B < 64)
+  int ring_offset;  // bytes: the slice, then the ring, then the split partials
+  int part_offset;
+  int smem_bytes;
+};
+
+// The most n8 tiles a warp can hold accumulators for: 48 f32 registers.
+__host__ __device__ constexpr int max_ntw(int mt) { return mt == 4 ? 3 : 6; }
+
+// False when no ring fits beside the slice (the caller refuses the launch).
+inline bool make_plan(int units, int hidden, int batch, int smem_limit, Plan& p) {
+  p.units = units;
+  p.mt = units > 8 ? 4 : 2;
+  p.rows = 4 * units;
+  p.hp = (hidden + 15) / 16 * 16;
+  p.pitch = p.hp + SPAD;
+  p.ring_offset = lstm::align16(p.rows * p.pitch * 2);
+  const int nt = (batch + 7) / 8;
+  // candidates: (ntw, wn, splits); wide batches prefer the ntw that pads the
+  // fewest tiles a step, then the larger one (fewer reads of the slice)
+  int best_kc = 0;
+  for (int w = max_ntw(p.mt); w >= 1; --w) {
+    const int wn = nt >= WARPS ? WARPS : nt;
+    const int splits = nt >= WARPS ? 1 : WARPS / nt;
+    if (splits > 1 && w > 1) continue;
+    const int nb = wn * w * 8;
+    const int chunks = (nt * 8 + nb - 1) / nb;
+    const int part = (splits - 1) * p.mt * 16 * nb * 4;
+    const int room = smem_limit - p.ring_offset - part;
+    if (room <= 0) continue;
+    // kc: a power of two (a thread's copies then share one k), as large as
+    // the ring allows, up to MAX_KC and no more than one round past hp
+    const int fit = room / STAGES / (nb * 2) - SPAD;
+    if (fit < 16) continue;
+    int kc = 16;
+    while (2 * kc <= fit && 2 * kc <= MAX_KC && kc < p.hp) kc *= 2;
+    if (best_kc > 0) {
+      const int cost = chunks * w, best_cost = p.chunks * p.ntw;
+      if (cost >= best_cost) continue;
+    }
+    p.ntw = w;
+    p.wn = wn;
+    p.splits = splits;
+    p.nb = nb;
+    p.chunks = chunks;
+    p.kc = kc;
+    best_kc = kc;
+  }
+  if (best_kc == 0) return false;
+  p.spitch = p.kc + SPAD;
+  p.kr = (p.hp + p.kc - 1) / p.kc;
+  p.part_offset = p.ring_offset + STAGES * p.nb * p.spitch * 2;
+  p.smem_bytes = p.part_offset + (p.splits - 1) * p.mt * 16 * p.nb * 4;
+  return true;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared through L2 only (cp.async.cg: the
+// sequence tensors are written by other blocks during the launch, so no L1
+// line may serve them); zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
+}
+
+// One k16 step's fragments of a warp: A for its MT row tiles, B for its
+// NTW column tiles.
+template <int MT, int NTW> struct Frags {
+  uint32_t a[MT][4];
+  uint32_t b[NTW][2];
+
+  __device__ __forceinline__ void load(const bf16* ws, const int* a_off, const bf16* slab,
+                                       const int* b_off, int k_slice, int k_slab, int nv) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      ldsm_x4(a[m][0], a[m][1], a[m][2], a[m][3], ws + a_off[m] + k_slice);
+#pragma unroll
+    for (int jp = 0; jp < (NTW + 1) / 2; ++jp) {
+      const bf16* src = slab + b_off[jp] + k_slab;
+      if (2 * jp + 1 < NTW && 2 * jp + 1 < nv) {
+        ldsm_x4(b[2 * jp][0], b[2 * jp][1], b[2 * jp + 1][0], b[2 * jp + 1][1], src);
+      } else if (2 * jp < nv) {
+        ldsm_x2(b[2 * jp][0], b[2 * jp][1], src);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void mma(float (*acc)[MT][4], int nv) const {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      if (j < nv)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) lstm::mma_bf16(acc[j][m], a[m], b[j]);
+  }
+};
+
+// A round of a step: its batch chunk, its index in the chunk, its k slab
+// (the index shifted by the block's starting slab, mod kr) and its ring slot.
+struct Round {
+  int chunk, kk, ks, slot;
+
+  __device__ __forceinline__ void advance(int kr) {
+    if (++ks == kr) ks = 0;
+    if (++kk == kr) {
+      kk = 0;
+      ++chunk;
+    }
+    if (++slot == STAGES) slot = 0;
+  }
+};
+
+// Gate `gate` of unit slot us (unit g + 8 us) at column 2q + e of tile j,
+// as the accumulators hold it: MT 4, m-tile = gate and row g + 8 us; MT 2,
+// m-tile gate / 2 and row g + 8 (gate % 2).
+template <int MT, int NTW>
+__device__ __forceinline__ float gate_sum(float (&acc)[NTW][MT][4], int j, int gate, int us,
+                                          int e) {
+  if constexpr (MT == 4) return acc[j][gate][2 * us + e];
+  else return acc[j][gate >> 1][2 * (gate & 1) + e];
+}
+
+template <int MT, int NTW>
+__global__ void __launch_bounds__(THREADS, 1) lstm_fwd_ring(const FwdArgs a, const Plan p) {
+  constexpr int UPT = MT == 4 ? 2 : 1;  // units a thread holds: g and g + 8, or g
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* slabs = reinterpret_cast<bf16*>(smem + p.ring_offset);
+  float* part = reinterpret_cast<float*>(smem + p.part_offset);
+  const bf16* xp = static_cast<const bf16*>(a.xp);
+  const bf16* wt = static_cast<const bf16*>(a.wt);
+  bf16* hseq = static_cast<bf16*>(a.hseq);
+  bf16* cseq = static_cast<bf16*>(a.cseq);
+  bf16* gates = static_cast<bf16*>(a.gates);
+  const int H = a.hidden, B = a.batch, U = p.units;
+  const int j0 = blockIdx.x * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int split = warp / p.wn, wn = warp - split * p.wn;
+  const bool active = split < p.splits;     // a warp with products (the rest only copy)
+  const bool owner = active && split == 0;  // a warp that runs the epilogue
+  const int slab_elems = p.nb * p.spitch;
+  const int nt = (B + 7) / 8;
+
+  // the slice, 16 bytes a load: row gate * U + u is w_hhᵀ row gate * H + j0
+  // + u, zero past the last unit and past k = H
+  {
+    const int vrow = p.pitch / 8;
+    for (int idx = threadIdx.x; idx < p.rows * vrow; idx += THREADS) {
+      const int r = idx / vrow;
+      const int k = (idx - r * vrow) * 8;
+      const int gate = r / U;
+      const int j = j0 + r - gate * U;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (j < H && k < H)
+        v = *reinterpret_cast<const uint4*>(wt + (static_cast<long long>(gate) * H + j) * H + k);
+      *reinterpret_cast<uint4*>(ws + r * p.pitch + k) = v;
+    }
+    __syncthreads();  // the slice is every warp's
+  }
+
+  // ldmatrix row addresses of this lane. A: matrix lane / 8 of a tile is
+  // (rows 0-7 | 8-15) x (k 0-7 | 8-15); a row past the block's units reads
+  // any valid row, and its sums are never used.
+  int a_off[MT];
+  {
+    const int mi = lane >> 3;
+    const int rr = (lane & 7) + (mi & 1) * 8;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int gate = MT == 4 ? m : 2 * m + (rr >> 3);
+      int unit = MT == 4 ? rr : (rr & 7);
+      if (unit >= U) unit = U - 1;
+      a_off[m] = (gate * U + unit) * p.pitch + (mi >> 1) * 8;
+    }
+  }
+  // B: matrix lane / 8 is (tile 2jp | 2jp + 1) x (k 0-7 | 8-15) of the slab
+  int b_off[(NTW + 1) / 2];
+#pragma unroll
+  for (int jp = 0; jp < (NTW + 1) / 2; ++jp) {
+    const int mi = lane >> 3;
+    const int tile = wn * p.ntw + 2 * jp + (mi >> 1);
+    b_off[jp] = (tile * 8 + (lane & 7)) * p.spitch + (mi & 1) * 8;
+  }
+
+  float acc[NTW][MT][4];
+  bf16 xv[NTW][UPT][2][4];  // x_proj of the thread's outputs: [tile][unit][column][gate]
+  float cv[NTW][UPT][2];    // their f32 carries
+
+  // column tiles of chunk c that this warp owns and that hold batch rows
+  const auto valid_tiles = [&](int c) {
+    const int v = nt - (c * p.nb / 8 + wn * p.ntw);
+    return v < 0 ? 0 : (v < p.ntw ? v : p.ntw);
+  };
+  const auto column = [&](int c, int j, int e) {
+    return c * p.nb + (wn * p.ntw + j) * 8 + 2 * q + e;
+  };
+  // x_proj and c of step t, chunk c, into registers (consumed by epilogue)
+  const auto prefetch = [&](int t, int c) {
+    if (!owner) return;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = column(c, j, e);
+        if (j >= p.ntw || b >= B) continue;
+        const long long row = static_cast<long long>(t) * B + b;
+#pragma unroll
+        for (int us = 0; us < UPT; ++us) {
+          const int u = g + 8 * us;
+          if (u >= U || j0 + u >= H) continue;
+          const bf16* x = xp + row * 4 * H + j0 + u;
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) xv[j][us][e][gate] = x[gate * H];
+          cv[j][us][e] = a.c[static_cast<long long>(b) * H + j0 + u];
+        }
+      }
+  };
+  // The ring's copies. A warp copies only the slab rows and k16 steps it
+  // multiplies, so a warp barrier, not a block barrier, publishes a slab
+  // and the warps do not wait on each other between rounds. Without a K
+  // split, kc / 8 vectors a row divide the 32 lanes, and a lane copies
+  // vector ckv of rows cn, cn + dn, ... of the warp's column tiles; with
+  // one, a lane copies row lane % 8 of the warp's tile, half (lane / 8) % 2
+  // of the warp's k16 steps lane / 16, lane / 16 + 2, ...
+  const int vrow = p.kc / 8;
+  const int cn = lane / vrow, ckv = lane % vrow;
+  const int dn = 32 / vrow;
+  // the next round to copy: its chunk, index in the chunk, k slab and ring
+  // slot; the blocks walk a chunk's k slabs from their own starting point
+  // (blockIdx.x % kr), so they do not all ask L2 for the same lines at once
+  const int first = blockIdx.x % p.kr;
+  Round next{0, 0, first, 0};
+  const auto issue = [&](const bf16* hprev) {
+    if (active && next.chunk < p.chunks) {
+      const int n0 = next.chunk * p.nb;
+      const int k0 = next.ks * p.kc;
+      bf16* slab = slabs + next.slot * slab_elems;
+      if (p.splits == 1) {
+        const int base = wn * p.ntw * 8;  // the warp's first slab row
+        const int nrows = valid_tiles(next.chunk) * 8;
+        const int k = k0 + ckv * 8;
+        const int rows = k < H ? B - n0 - base : 0;  // rows to copy, the rest zero-filled
+        bf16* dst = slab + (base + cn) * p.spitch + ckv * 8;
+        const bf16* src = hprev + static_cast<long long>(n0 + base + cn) * H + k;
+        for (int n = cn; n < nrows; n += dn) {
+          cp_async16(dst, n < rows ? src : hprev, n < rows);
+          dst += dn * p.spitch;
+          src += static_cast<long long>(dn) * H;
+        }
+      } else {
+        const int row = wn * 8 + (lane & 7);
+        const int kh = ((lane >> 3) & 1) * 8;
+        const bool in_batch = n0 + row < B;
+        bf16* dst = slab + row * p.spitch + kh;
+        const bf16* src = hprev + static_cast<long long>(n0 + row) * H + k0 + kh;
+        for (int k16 = split + (lane >> 4) * p.splits; k16 < p.kc / 16; k16 += 2 * p.splits) {
+          const bool ok = in_batch && k0 + k16 * 16 + kh < H;
+          cp_async16(dst + k16 * 16, ok ? src + k16 * 16 : hprev, ok);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the last round keeps the count
+    next.advance(p.kr);
+  };
+
+  prefetch(a.reverse ? a.steps - 1 : 0, 0);
+  for (int s = 0; s < a.steps; ++s) {
+    const int t = a.reverse ? a.steps - 1 - s : s;
+    const bf16* hprev = s == 0 ? static_cast<const bf16*>(a.h0)
+                               : hseq + static_cast<long long>(a.reverse ? t + 1 : t - 1) * B * H;
+    next = Round{0, 0, first, 0};
+    for (int i = 0; i < STAGES - 1; ++i) issue(hprev);
+    for (Round cur{0, 0, first, 0}; cur.chunk < p.chunks; cur.advance(p.kr)) {
+      cp_async_wait<STAGES - 2>();  // this lane's copies of round cur have landed
+      __syncwarp();                 // the warp's have, and it is done with the slot it refills
+      issue(hprev);
+      const int c = cur.chunk;
+      const int kk = cur.kk;
+      if (kk == 0) {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][m][e] = 0.f;
+        if (c > 0) prefetch(t, c);
+      }
+      const int nv = valid_tiles(c);
+      if (active && nv > 0) {
+        const bf16* slab = slabs + cur.slot * slab_elems;
+        const int k0 = cur.ks * p.kc;
+        const int n16 = (p.hp - k0 < p.kc ? p.hp - k0 : p.kc) / 16;
+        // this warp's k16 steps split, split + splits, ...: the next one's
+        // fragments are loaded before the current one's products
+        Frags<MT, NTW> f0, f1;
+        int k16 = split;
+        if (k16 < n16) f0.load(ws, a_off, slab, b_off, k0 + 16 * k16, 16 * k16, nv);
+        while (k16 < n16) {
+          const int k1 = k16 + p.splits;
+          if (k1 < n16) f1.load(ws, a_off, slab, b_off, k0 + 16 * k1, 16 * k1, nv);
+          f0.mma(acc, nv);
+          if (k1 >= n16) break;
+          const int k2 = k1 + p.splits;
+          if (k2 < n16) f0.load(ws, a_off, slab, b_off, k0 + 16 * k2, 16 * k2, nv);
+          f1.mma(acc, nv);
+          k16 = k2;
+        }
+      }
+      if (kk != p.kr - 1) continue;
+
+      // the chunk's products are complete: split partials meet in shared
+      // memory (B < 64 only), then the gate math from registers
+      if (p.splits > 1) {
+        if (active && split > 0 && nv > 0) {
+          float* pp = part + (static_cast<long long>(split - 1) * MT * 16) * p.nb;
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              pp[(m * 16 + g + 8 * (e >> 1)) * p.nb + wn * 8 + 2 * q + (e & 1)] = acc[0][m][e];
+        }
+        __syncthreads();
+        if (owner && nv > 0)
+          for (int sp = 1; sp < p.splits; ++sp) {
+            const float* pp = part + (static_cast<long long>(sp - 1) * MT * 16) * p.nb;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[0][m][e] += pp[(m * 16 + g + 8 * (e >> 1)) * p.nb + wn * 8 + 2 * q + (e & 1)];
+          }
+      }
+      if (!owner) continue;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = column(c, j, e);
+          if (j >= nv || b >= B) continue;
+          const long long row = static_cast<long long>(t) * B + b;
+#pragma unroll
+          for (int us = 0; us < UPT; ++us) {
+            const int u = g + 8 * us;
+            const int jj = j0 + u;
+            if (u >= U || jj >= H) continue;
+            const float i = lstm::sigmoid(__bfloat162float(xv[j][us][e][0]) +
+                                          gate_sum<MT, NTW>(acc, j, 0, us, e));
+            const float f = lstm::sigmoid(__bfloat162float(xv[j][us][e][1]) +
+                                          gate_sum<MT, NTW>(acc, j, 1, us, e));
+            const float gg = tanhf(__bfloat162float(xv[j][us][e][2]) +
+                                   gate_sum<MT, NTW>(acc, j, 2, us, e));
+            const float o = lstm::sigmoid(__bfloat162float(xv[j][us][e][3]) +
+                                          gate_sum<MT, NTW>(acc, j, 3, us, e));
+            const float cn = f * cv[j][us][e] + i * gg;
+            a.c[static_cast<long long>(b) * H + jj] = cn;
+            hseq[row * H + jj] = __float2bfloat16(o * tanhf(cn));
+            cseq[row * H + jj] = __float2bfloat16(cn);
+            bf16* gt = gates + row * 4 * H + jj;
+            gt[0] = __float2bfloat16(i);
+            gt[H] = __float2bfloat16(f);
+            gt[2 * H] = __float2bfloat16(gg);
+            gt[3 * H] = __float2bfloat16(o);
+          }
+        }
+    }
+    if (s + 1 < a.steps) {
+      prefetch(a.reverse ? t - 1 : t + 1, 0);  // independent of the other blocks
+      lstm::grid_sync(a.bar, gridDim.x);
+    }
+  }
+}
+
+template <int MT, int NTW>
+int launch(const FwdArgs& a, const Plan& p, int blocks, cudaStream_t stream) {
+  return lstm::launch(lstm_fwd_ring<MT, NTW>, a, p, blocks, stream);
+}
+
+}  // namespace ring
+
 template <typename T>
 int run(FwdArgs a, cudaStream_t stream) {
   const int sms = lstm::multiprocessors();
   const int units = sms > 0 ? lstm::units_per_block(a.hidden, sms) : 0;
   if (units == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const lstm::Plan p = lstm::make_plan(sizeof(T), units, 4 * units, a.hidden, a.batch);
   constexpr int V = 16 / sizeof(T);
   a.vec = a.hidden % V == 0 && reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(a.hseq) % 16 == 0;
   const int blocks = (a.hidden + units - 1) / units;
+  if (sizeof(T) == 2 && a.vec && reinterpret_cast<uintptr_t>(a.wt) % 16 == 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ring::Plan p;
+    if (!ring::make_plan(units, a.hidden, a.batch, optin, p))
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    return p.mt == 4 ? ring::launch<4, ring::max_ntw(4)>(a, p, blocks, stream)
+                     : ring::launch<2, ring::max_ntw(2)>(a, p, blocks, stream);
+  }
+  const lstm::Plan p = lstm::make_plan(sizeof(T), units, 4 * units, a.hidden, a.batch);
   return lstm::launch(lstm_fwd_kernel<T>, a, p, blocks, stream);
 }
 

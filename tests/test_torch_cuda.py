@@ -422,18 +422,16 @@ def _lstm_inputs(steps, batch, hidden, dtype, dev, seed=0, state=True):
     return [torch.from_numpy(a).to(dev, dtype) for a in (x_proj, w_hh, h0, c0)]
 
 
-# (T, B, H): small widths, a ragged second batch chunk (B 70 > 64), an H not a
-# multiple of 8 (element staging), one more hidden unit than SMs (2 units a block)
+# (T, B, H): small widths, a ragged last column tile (B 70; a second batch
+# chunk on the f32 path), an H not a multiple of 8 (element staging), one more
+# hidden unit than SMs (2 units a block)
 LSTM_SHAPES = [(9, 3, 32), (20, 70, 64), (13, 5, 20), (6, 4, 133)]
 # f32: the same FMA arithmetic, another summation order; bf16: sums in another
 # order flip single bf16 roundings of h and c, which the recurrence carries
 LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", LSTM_SHAPES)
-def test_lstm_fwd_kernel_matches_plain(card, shape, reverse, dtype):
+def _check_lstm_fwd(card, shape, reverse, dtype):
     from speech_enhancement_torch.kernels.lstm import fused_lstm_plain, lstm_fwd
     args = _lstm_inputs(*shape, dtype, card, seed=sum(shape))
     before = lstm_fwd.launches
@@ -445,6 +443,26 @@ def test_lstm_fwd_kernel_matches_plain(card, shape, reverse, dtype):
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=LSTM_TOL[dtype],
                                    atol=LSTM_TOL[dtype], msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_fwd_kernel_matches_plain(card, shape, reverse, dtype):
+    _check_lstm_fwd(card, shape, reverse, dtype)
+
+
+# (T, B, H) at the served widths, where bf16 takes the forward's ring path:
+# U 14 with the full shared-memory budget (B 192, one chunk of 192 columns),
+# U 7 with two gates a tile (B 384), a ragged last batch chunk (B 200), and
+# K split over the warps (B 16)
+LSTM_WIDE_SHAPES = [(4, 192, 1792), (4, 384, 896), (4, 200, 1792), (4, 16, 1792)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_WIDE_SHAPES)
+def test_lstm_fwd_kernel_matches_plain_at_served_widths(card, shape, reverse):
+    _check_lstm_fwd(card, shape, reverse, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
