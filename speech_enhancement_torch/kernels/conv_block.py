@@ -404,27 +404,58 @@ def dec_bwd_dw_plain(zx: torch.Tensor, zs: torch.Tensor, gy: torch.Tensor, *, f_
 # -- training: the backward kernels ------------------------------------------
 
 _DW_BLOCKS = 2048  # blocks a weight-gradient launch aims for: ~16 per SM of an H100
+#                   (twice that for the 128-thread bf16 tiles, more of which fit an SM)
 _DW_PART_BYTES = 1 << 28  # cap on its split-K partials
 
 
-def dw_tile(c2: int, c2out: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """Channel tile (BM input x BN output channels) of the weight-gradient
-    kernels (``csrc/dw_gemm.cuh``): the smallest of 16 / 32 / 64 that holds
-    each side in bf16, 32 x 32 in f32."""
+def _windows(widths: Sequence[int], decoder: bool) -> list:
+    """(input rows of a window, channels) of each GEMM of the bf16
+    weight-gradient kernel: the encoder's five rows, the decoder's even
+    (three rows) and odd (two) output rows of the trunk and of the skip."""
+    return [(rows, c2) for c2 in widths for rows in ((3, 2) if decoder else (5,))]
+
+
+def dw_tile(widths: Sequence[int], c2out: int, dtype: torch.dtype, *,
+            decoder: bool = False) -> Tuple[int, int]:
+    """Tile of the weight-gradient kernels (``csrc/dw_gemm.cuh``). bf16: BM
+    window rows (tap, input channel) x BN columns (time tap, output
+    channel), from the widest window M and N = 2 c2out: 128 x 128 where
+    both are large, else 64 x 64, 32 x 32 (16 x 32 for a window of at most
+    16 rows) or, for N <= 8, 32 x 8 (measured at DCCRN's twelve blocks,
+    B 128, T 643: tools/dw_phase_probe.py --tile); f32: 32 x 32 channels."""
     if dtype != torch.bfloat16:
         return 32, 32
-    return tuple(16 if c <= 16 else 32 if c <= 32 else 64 for c in (c2, c2out))
+    m = max(rows * c2 for rows, c2 in _windows(widths, decoder))
+    n = 2 * c2out
+    if n >= 128 and m >= 256:
+        return 128, 128
+    if n > 32:
+        return 64, 64
+    return (16 if m <= 16 else 32, 32) if n > 8 else (32, 8)
 
 
-def dw_splits(batch: int, f_out: int, n_time: int, tiles: int, c2tot: int, c2out: int,
-              dtype: torch.dtype) -> int:
+def dw_splits(batch: int, f_in: int, n_time: int, widths: Sequence[int], c2out: int, bm: int,
+              bn: int, dtype: torch.dtype, *, decoder: bool = False) -> int:
     """K splits of a weight-gradient launch: enough blocks to fill the card
-    (``_DW_BLOCKS`` over the 5 taps x ``tiles`` channel tiles), at most one
-    per step of BK frames, partials within ``_DW_PART_BYTES``."""
-    bk = 64 if dtype == torch.bfloat16 else 32
-    steps = batch * f_out * -(-n_time // bk)
+    (``_DW_BLOCKS``, or twice that for bf16 tiles smaller than 128 x 128,
+    over the blocks of one split), at most one per step, partials within
+    ``_DW_PART_BYTES``. bf16 steps are (b, 64-frame chunk, output row of a
+    parity) and a split has every GEMM's BM x BN tiles; f32 steps are (b,
+    output row, 32-frame chunk) and a split has 5 taps x the 32 x 32
+    channel tiles."""
+    c2tot = sum(widths)
+    aim = _DW_BLOCKS
+    if dtype == torch.bfloat16:
+        rows, bk = (f_in if decoder else f_in // 2), 64
+        blocks = sum(-(-(r * c2) // bm) for r, c2 in _windows(widths, decoder)) * -(
+            -c2out // (bn // 2))
+        aim = _DW_BLOCKS if bm * bn >= 128 * 128 else 2 * _DW_BLOCKS
+    else:
+        rows, bk = (2 * f_in if decoder else f_in // 2), 32
+        blocks = 5 * sum(-(-c2 // bm) for c2 in widths) * -(-c2out // bn)
+    steps = batch * rows * -(-n_time // bk)
     cap = max(1, _DW_PART_BYTES // (10 * c2tot * c2out * 4))
-    return max(1, min(-(-_DW_BLOCKS // (5 * tiles)), steps, cap, 65535))
+    return max(1, min(-(-aim // blocks), steps, cap, 65535))
 
 
 def _check_bwd(what: str, acts: Sequence[torch.Tensor], rest: Sequence = ()) -> bool:
@@ -476,9 +507,8 @@ def enc_bwd_dw(z: torch.Tensor, gy: torch.Tensor, *, f_in: int, c2in: int,
     if not _check_bwd("enc_bwd_dw", [z, gy]):
         return enc_bwd_dw_plain(z, gy, f_in=f_in, c2in=c2in, c2out=c2out)
     batch, _, n_time = z.shape
-    bm, bn = dw_tile(c2in, c2out, z.dtype)
-    tiles = -(-c2in // bm) * -(-c2out // bn)
-    splits = dw_splits(batch, f_in // 2, n_time, tiles, c2in, c2out, z.dtype)
+    bm, bn = dw_tile((c2in,), c2out, z.dtype)
+    splits = dw_splits(batch, f_in, n_time, (c2in,), c2out, bm, bn, z.dtype)
     part = torch.empty((splits, 5, 2, c2in, c2out), dtype=torch.float32, device=z.device)
     _launch("enc_bwd_dw", [_is_bf16(z), z.data_ptr(), gy.data_ptr(), part.data_ptr(), splits,
                            bm, bn, batch, f_in, c2in, c2out, n_time], z)
@@ -522,9 +552,8 @@ def dec_bwd_dw(zx: torch.Tensor, zs: torch.Tensor, gy: torch.Tensor, *, f_in: in
     if not _check_bwd("dec_bwd_dw", [zx, zs, gy]):
         return dec_bwd_dw_plain(zx, zs, gy, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
     batch, _, n_time = zx.shape
-    bm, bn = dw_tile(max(c2x, c2s), c2out, zx.dtype)
-    tiles = (-(-c2x // bm) + -(-c2s // bm)) * -(-c2out // bn)
-    splits = dw_splits(batch, 2 * f_in, n_time, tiles, c2x + c2s, c2out, zx.dtype)
+    bm, bn = dw_tile((c2x, c2s), c2out, zx.dtype, decoder=True)
+    splits = dw_splits(batch, f_in, n_time, (c2x, c2s), c2out, bm, bn, zx.dtype, decoder=True)
     part = torch.empty((splits, 5, 2, c2x + c2s, c2out), dtype=torch.float32, device=zx.device)
     _launch("dec_bwd_dw", [_is_bf16(zx), zx.data_ptr(), c2x, zs.data_ptr(), c2s, gy.data_ptr(),
                            part.data_ptr(), splits, bm, bn, batch, f_in, c2out, n_time], zx)

@@ -20,7 +20,8 @@
 // enc_bwd_dw: for the recomputed activated input z [B, f_in * C2in, T]
 //   and g, dW[jf, jt] = sum over (b, fo, t) of z[2 fo + jf - 2, t - 1 + jt]
 //   g[fo, t]^T, as split-K partials [S, 5, 2, C2in, C2out] f32 that the
-//   wrapper sums (dw_gemm.cuh).
+//   wrapper sums (dw_gemm.cuh: in bf16 one GEMM whose rows are the five
+//   input rows an output row reads, the taps).
 //
 // What bounds them on an H100 (B = 128 windows, T = 643 frames, bf16; the
 // FLOPs are the forward's, 2 * B * T * C2out * 2 * C2in per live (output
@@ -34,14 +35,12 @@
 // Rounding, as the JAX kernels: g and the weights in the activation type,
 // f32 accumulation, g_z stored in the activation type, dW in f32.
 //
-// ptxas (sm_90a, this source and its decoder/encoder twin): the bf16
-// weight-gradient kernels, tiles 16 x 16 to 64 x 64 channels, 63 to 126
-// registers, 6.9 to 27.6 KB shared memory, no spills (the f32 one, 32 x
-// 32, 124 registers); the bf16 input-gradient variants of block_gemm.cuh,
-// tile heights 16 / 32 / 64 / 128, 71-72 / 72-74 / 79 / 122 registers, no
-// spills; their f32 variants up to 255 registers with 40 bytes of spills at
-// height 128 (used only by the small f32 model). chip_smoke.py logs the
-// report of each build.
+// ptxas (sm_90a, this source and its decoder/encoder twin): the weight-
+// gradient kernels' reports are in PERF.md; the bf16 input-gradient
+// variants of block_gemm.cuh, tile heights 16 / 32 / 64 / 128, 71-72 /
+// 72-74 / 79 / 122 registers, no spills; their f32 variants up to 255
+// registers with 40 bytes of spills at height 128 (used only by the small
+// f32 model). chip_smoke.py logs the report of each build.
 
 #include "block_gemm.cuh"
 #include "common.cuh"
@@ -69,7 +68,7 @@ int run_dw(const void* z, const void* gy, void* part, int splits, int bm, int bn
            int f_in, int c2in, int c2out, int n_time, void* stream) {
   if (f_in % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   dwgemm::Params p{};
-  p.reg[0] = {z, c2in, 0, 0};
+  p.reg[0] = {z, c2in, 0};
   p.n_reg = 1;
   p.g = gy;
   p.part = static_cast<float*>(part);

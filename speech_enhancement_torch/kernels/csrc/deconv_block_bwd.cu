@@ -23,7 +23,9 @@
 //   t + jt] g[fo, t]^T, both regions in one launch, as split-K partials
 //   [S, 5, 2, C2x + C2s, C2out] f32 with the trunk's channels first and the
 //   skip's after them; the wrapper sums the partials and puts the rows in
-//   the joined order [xr, sr, xi, si] (dw_gemm.cuh).
+//   the joined order [xr, sr, xi, si] (dw_gemm.cuh: in bf16 four GEMMs,
+//   trunk and skip by even and odd output rows, whose rows are the three
+//   or two input rows an output row reads, the taps).
 //
 // What bounds them on an H100 (B = 128, T = 643, bf16; FLOPs as the
 // forward's, 2.5 live taps per output row on average, against 989 TFLOP/s;
@@ -37,14 +39,12 @@
 // Rounding, as the JAX kernels: g and the weights in the activation type,
 // f32 accumulation, g_zx and g_zs stored in the activation type, dW in f32.
 //
-// ptxas (sm_90a, this source and its decoder/encoder twin): the bf16
-// weight-gradient kernels, tiles 16 x 16 to 64 x 64 channels, 63 to 126
-// registers, 6.9 to 27.6 KB shared memory, no spills (the f32 one, 32 x
-// 32, 124 registers); the bf16 input-gradient variants of block_gemm.cuh,
-// tile heights 16 / 32 / 64 / 128, 71-72 / 72-74 / 79 / 122 registers, no
-// spills; their f32 variants up to 255 registers with 40 bytes of spills at
-// height 128 (used only by the small f32 model). chip_smoke.py logs the
-// report of each build.
+// ptxas (sm_90a, this source and its decoder/encoder twin): the weight-
+// gradient kernels' reports are in PERF.md; the bf16 input-gradient
+// variants of block_gemm.cuh, tile heights 16 / 32 / 64 / 128, 71-72 /
+// 72-74 / 79 / 122 registers, no spills; their f32 variants up to 255
+// registers with 40 bytes of spills at height 128 (used only by the small
+// f32 model). chip_smoke.py logs the report of each build.
 
 #include "block_gemm.cuh"
 #include "common.cuh"
@@ -73,8 +73,8 @@ int run_dw(const void* zx, int c2x, const void* zs, int c2s, const void* gy, voi
            int splits, int bm, int bn, int batch, int f_in, int c2out, int n_time,
            void* stream) {
   dwgemm::Params p{};
-  p.reg[0] = {zx, c2x, 0, 0};
-  p.reg[1] = {zs, c2s, c2x, 0};
+  p.reg[0] = {zx, c2x, 0};
+  p.reg[1] = {zs, c2s, c2x};
   p.n_reg = 2;
   p.g = gy;
   p.part = static_cast<float*>(part);

@@ -229,35 +229,53 @@ def _out_row_split(y, c2a):
     return a.reshape(batch, f * c2a, n_time), s.reshape(batch, f * c2s, n_time)
 
 
-def _emulate_dw(regions, gy, f_in, f_out, c2out, n_time, decoder, splits, bk):
-    """dw_gemm.cuh's split-K partials [S, 5, 2, C2tot, C2out]: split s takes
-    steps [s * steps / S, (s + 1) * steps / S) of the (b, fo, frame chunk)
-    list; region r's channels land at rows row0 + c."""
+def _emulate_dw(regions, gy, f_in, f_out, c2out, n_time, decoder, splits, bk, bm=16):
+    """dw_gemm.cuh's bf16 split-K partials [S, 5, 2, C2tot, C2out]. One GEMM
+    per (region, output-row parity): its rows are the window of input rows
+    an output row m reads (taps in the rows: window row w, channel ci is
+    tap jf = w, or 2 w + parity in the decoder), its columns (jt, co), g
+    shifted by the time tap. Split s takes the steps [s * steps / S, (s +
+    1) * steps / S) of the (b, frame chunk, m) list, m fastest (the
+    decoder's chunks start early, so that the partial one comes first); a
+    tile of bm window rows skips the steps whose rows all fall outside [0,
+    f_in)."""
     batch = gy.shape[0]
     g = gy.reshape(batch, f_out, c2out, n_time).astype(np.float64)
     c2tot = sum(c2 for _, c2, _ in regions)
-    chunks = -(-n_time // bk)
-    steps = batch * f_out * chunks
+    off = (bk - n_time % bk) % bk if decoder else 0
+    chunks = -(-(n_time + off) // bk)
+    k_rows = f_in if decoder else f_out
+    steps = batch * chunks * k_rows
     part = np.zeros((splits, 5, 2, c2tot, c2out))
-    for s in range(splits):
-        for step in range(steps * s // splits, steps * (s + 1) // splits):
-            b, rem = divmod(step, f_out * chunks)
-            fo, chunk = divmod(rem, chunks)
-            t = np.arange(chunk * bk, (chunk + 1) * bk)
-            g_t = np.where(t < n_time, g[b, fo][:, np.minimum(t, n_time - 1)], 0.0)
-            for jf in range(5):
-                if decoder and (fo + jf) % 2:
-                    continue
-                fi = (fo + jf - 2) // 2 if decoder else 2 * fo + jf - 2
-                if not 0 <= fi < f_in:
-                    continue
-                for z, c2, row0 in regions:
-                    zb = z.reshape(batch, f_in, c2, n_time)[b, fi].astype(np.float64)
-                    for jt in range(2):
-                        src = t + (jt if decoder else jt - 1)
+    for z, c2, row0 in regions:
+        zr = z.reshape(batch, f_in * c2, n_time).astype(np.float64)
+        for parity in ((0, 1) if decoder else (0,)):
+            rows = 3 - parity if decoder else 5
+            for s in range(splits):
+                for step in range(steps * s // splits, steps * (s + 1) // splits):
+                    rest, m = divmod(step, k_rows)
+                    b, chunk = divmod(rest, chunks)
+                    first = (m - 1 + parity if decoder else 2 * m - 2) * c2  # window's first row
+                    fo = 2 * m + parity if decoder else m
+                    u = np.arange(max(chunk * bk - off, 0), min((chunk + 1) * bk - off, n_time))
+                    cols = []
+                    for jt in range(2):  # g at u + 1 - jt (encoder), u - jt (decoder)
+                        src = u - jt if decoder else u + 1 - jt
                         ok = (src >= 0) & (src < n_time)
-                        z_t = np.where(ok, zb[:, np.clip(src, 0, n_time - 1)], 0.0)
-                        part[s, jf, jt, row0:row0 + c2] += z_t @ g_t.T
+                        cols.append(np.where(ok, g[b, fo][:, np.clip(src, 0, n_time - 1)], 0.0))
+                    g_t = np.concatenate(cols)  # [(jt, co), frames]
+                    for r0 in range(0, rows * c2, bm):
+                        r = np.arange(r0, min(r0 + bm, rows * c2))
+                        if not (first + r[0] < f_in * c2 and first + r[-1] >= 0):
+                            continue
+                        ok = (first + r >= 0) & (first + r < f_in * c2)
+                        z_t = np.where(ok[:, None],
+                                       zr[b][np.clip(first + r, 0, f_in * c2 - 1)][:, u], 0.0)
+                        prod = z_t @ g_t.T
+                        w, ci = np.divmod(r, c2)
+                        jf = 2 * w + parity if decoder else w
+                        for jt in range(2):
+                            part[s, jf, jt, row0 + ci] += prod[:, jt * c2out:(jt + 1) * c2out]
     return part
 
 
@@ -300,15 +318,94 @@ def test_decoder_backward_kernels_indexing_matches_plain(rng, splits):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
-def test_dw_tiles_and_splits_cover_the_model():
+# (f_in, widths, c2out) -> (bm, bn, splits) of DCCRN's twelve blocks
+DW_PLANS = {
+    "enc0": ((256, (2,), 16), (16, 32, 4096)),
+    "enc1": ((128, (16,), 32), (64, 64, 2048)),
+    "enc2": ((64, (32,), 64), (64, 64, 683)),
+    "enc3": ((32, (64,), 128), (128, 128, 342)),
+    "enc4": ((16, (128,), 256), (128, 128, 103)),
+    "enc5": ((8, (256,), 256), (128, 128, 52)),
+    "dec0": ((4, (256, 256), 256), (128, 128, 26)),
+    "dec1": ((8, (256, 256), 128), (128, 128, 52)),
+    "dec2": ((16, (128, 128), 64), (128, 128, 205)),
+    "dec3": ((32, (64, 64), 32), (64, 64, 410)),
+    "dec4": ((64, (32, 32), 16), (32, 32, 410)),
+    "dec5": ((128, (16, 16), 2), (32, 8, 683)),
+}
+
+
+@pytest.mark.parametrize("block", sorted(DW_PLANS))
+def test_dw_tiles_and_splits_cover_the_model(block):
     """The tile and split rules the wrappers pass to the weight-gradient
-    kernels, at the twelve full-width blocks (B = 128, T = 643, bf16)."""
-    assert pk.dw_tile(2, 16, torch.bfloat16) == (16, 16)
-    assert pk.dw_tile(256, 256, torch.bfloat16) == (64, 64)
-    assert pk.dw_tile(256, 2, torch.bfloat16) == (64, 16)
-    assert pk.dw_tile(256, 2, torch.float32) == (32, 32)
-    # dec0: 2 x 4 x 4 channel tiles; enc0: one; the partials stay bounded
-    s = pk.dw_splits(128, 8, 643, 32, 512, 256, torch.bfloat16)
-    assert s == 13 and s * 10 * 512 * 256 * 4 <= pk._DW_PART_BYTES
-    assert pk.dw_splits(128, 128, 643, 1, 2, 16, torch.bfloat16) == 410
-    assert pk.dw_splits(1, 1, 10, 1, 2, 2, torch.bfloat16) == 1  # one step: one split
+    kernels, at the twelve full-width blocks (B = 128, T = 643, bf16): tiles
+    of window rows no taller than needed (enc0's ten rows in one of 16),
+    about 2048 blocks a launch (4096 for the small tiles), partials
+    bounded."""
+    (f_in, widths, c2out), plan = DW_PLANS[block]
+    decoder = block.startswith("dec")
+    bm, bn = pk.dw_tile(widths, c2out, torch.bfloat16, decoder=decoder)
+    splits = pk.dw_splits(128, f_in, 643, widths, c2out, bm, bn, torch.bfloat16,
+                          decoder=decoder)
+    assert (bm, bn, splits) == plan
+    assert splits * 10 * sum(widths) * c2out * 4 <= pk._DW_PART_BYTES
+    assert pk.dw_tile(widths, c2out, torch.float32, decoder=decoder) == (32, 32)
+
+
+def test_dw_splits_edges():
+    assert pk.dw_splits(1, 2, 10, (2,), 2, 16, 32, torch.bfloat16) == 1  # one step: one split
+    # f32: (b, output row, 32-frame chunk) steps over 5 taps x 32 x 32 tiles
+    assert pk.dw_splits(128, 8, 643, (256, 256), 256, 32, 32, torch.float32,
+                        decoder=True) == 4
+    assert pk.dw_splits(128, 256, 643, (2,), 16, 32, 32, torch.float32) == 410
+
+
+def _realign(lo, hi, s):
+    """dw_gemm.cuh:realign word for word: elements [s, s + 8) of lo:hi."""
+    w = list(lo) + list(hi)
+    x = [w[k + 2] if s & 4 else w[k] for k in range(6)]
+    y = [x[k + 1] if s & 2 else x[k] for k in range(5)]
+    sh = (s & 1) * 16
+    return [hi[k] if s == 8 else ((y[k] | y[k + 1] << 32) >> sh) & 0xFFFFFFFF
+            for k in range(4)]
+
+
+def _mask_frames(v, f0, n):
+    """dw_gemm.cuh:mask_frames: zero the elements whose frame is outside [0, n)."""
+    return [word & ((0xFFFF if 0 <= f0 + 2 * k < n else 0)
+                    | (0xFFFF0000 if 0 <= f0 + 2 * k + 1 < n else 0))
+            for k, word in enumerate(v)]
+
+
+@pytest.mark.parametrize("fs", [0, -1, 600])  # z / encoder g, decoder g, last chunk
+@pytest.mark.parametrize("residue", range(8))
+def test_dw_staging_realigns_every_residue(residue, fs):
+    """The bf16 kernel's staging of one row, mirrored from dw_gemm.cuh
+    (issue, store, load): the row's frame fs sits ``residue`` elements into
+    its aligned 16-byte chunk; lane c loads chunks c and c + 1, or zeros
+    where no wanted frame lies in one, and shifts them by the residue (the
+    jt = 1 copy of g, or z) and by the residue + 1 (the jt = 0 copy): frames
+    fs ... fs + 64 in order, those outside [0, n_time) zero."""
+    n_time, span = 643, 65
+    memory = (np.arange(4096) * 7 + 3) % 65521 + 1  # no zero anywhere, frames or not
+    row = 1000 + residue - (1000 + fs) % 8  # element of frame 0: frame fs at the residue
+    assert (row + fs) % 8 == residue
+    aligned = row + fs - residue
+
+    def chunk(k):
+        cf = fs - residue + 8 * k
+        if not (cf + 8 > max(fs, 0) and cf < min(fs + span, n_time)):
+            return [0] * 4
+        e = memory[aligned + 8 * k:aligned + 8 * k + 8]
+        return [int(e[2 * i]) | int(e[2 * i + 1]) << 16 for i in range(4)]
+
+    lanes = [chunk(c) for c in range(9)]
+    for shift in (0, 1):
+        got, want = [], []
+        for c in range(8):
+            f0 = fs + shift + 8 * c
+            words = _mask_frames(_realign(lanes[c], lanes[c + 1], residue + shift), f0, n_time)
+            got += [half for word in words for half in (word & 0xFFFF, word >> 16)]
+            want += [int(memory[row + f]) if 0 <= f < n_time else 0
+                     for f in range(f0, f0 + 8)]
+        assert got == want

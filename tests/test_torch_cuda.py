@@ -248,6 +248,10 @@ def _assert_dw_close(got, want):
     (2, 16, 2, 16, 70),    # enc0's channels, ragged frame chunk
     (1, 8, 16, 32, 67),
     (2, 8, 64, 256, 130),  # several channel tiles
+    (1, 256, 2, 16, 643),  # enc0 at the real frame count: rows at every 16-byte residue
+    (1, 16, 128, 256, 643),  # enc4
+    (2, 8, 6, 16, 100),    # windows of 5 x 6 rows: not a multiple of the tile
+    (2, 2, 16, 32, 70),    # f_in 2: windows mostly outside the input
 ])
 def test_encoder_backward_kernels_match_plain(card, dtype, batch, f_in, c2in, c2out, n_time):
     rng = np.random.default_rng(7)
@@ -271,6 +275,9 @@ def test_encoder_backward_kernels_match_plain(card, dtype, batch, f_in, c2in, c2
     (1, 8, 16, 16, 2, 67),      # dec5's channels
     (2, 4, 32, 32, 64, 70),
     (1, 4, 64, 32, 256, 130),   # trunk and skip of different widths
+    (1, 4, 256, 256, 256, 643),  # dec0 at the real frame count: every 16-byte residue
+    (1, 128, 16, 16, 2, 643),   # dec5
+    (2, 8, 64, 32, 32, 100),    # different widths, another tile
 ])
 def test_decoder_backward_kernels_match_plain(card, dtype, batch, f_in, c2x, c2s, c2out,
                                               n_time):
