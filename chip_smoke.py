@@ -545,7 +545,7 @@ def bwd_kernel_phase(dev, kernel_num) -> dict:
                 ("dw", dw, dw_plain, lib_dw, err_dw, acts + 4 * weights)):
             row = {"block": name, "kind": kind, "f_in": f_in, "widths": widths, "c2out": c2out,
                    "max_abs_err": err, "rel_err": rel_dw if kind == "dw" else None,
-                   "ms": cuda_ms(kernel, reps=10 if kind == "dw" else 3, warmup=1),
+                   "ms": cuda_ms(kernel, reps=10, warmup=2),
                    "plain_ms": cuda_ms(plain, reps=2, warmup=1),
                    "library_ms": cuda_ms(library, reps=3, warmup=1),
                    "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,

@@ -131,10 +131,10 @@ _REGION = [_P, _P, _P, _I, _I]
 # the stream and returns cudaGetLastError()
 _ENTRIES = {
     "conv_block": ("conv_block", [_I] + _REGION + [_P] * 3 + [_I] * 4 + [_P]),
-    "deconv_block": ("deconv_block", [_I] + _REGION * 2 + [_P] * 3 + [_I] * 4 + [_P]),
+    "deconv_block": ("deconv_block", [_I] + _REGION * 2 + [_P] * 3 + [_I] * 7 + [_P]),
     "enc_bwd_gz": ("conv_block_bwd", [_I, _P, _P, _I, _I, _P] + [_I] * 4 + [_P]),
     "enc_bwd_dw": ("conv_block_bwd", [_I, _P, _P, _P] + [_I] * 8 + [_P]),
-    "dec_bwd_gz": ("deconv_block_bwd", [_I, _P, _P, _I, _I, _P, _I, _P] + [_I] * 4 + [_P]),
+    "dec_bwd_gz": ("deconv_block_bwd", [_I, _P, _P, _I, _I, _P, _I, _P] + [_I] * 6 + [_P]),
     "dec_bwd_dw": ("deconv_block_bwd", [_I, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]),
 }
 
@@ -177,6 +177,67 @@ def _pack_weights(w: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, in
     c2r = w.shape[2]
     kp = -(-c2r // _BK) * _BK
     return F.pad(w.permute(0, 1, 3, 2).to(dtype), (0, kp - c2r)).contiguous(), kp
+
+
+def block_tile(m: int) -> Tuple[int, int]:
+    """(BM, NB) of the bf16 decoder-block kernels (``csrc/block_mma.cuh``)
+    for a GEMM of ``m`` output channels: BM channels x NB segments of 64
+    frames, each a batch item, so that every staged weight step serves 128
+    or 256 frames. 128 x 2 from 128 channels, 64 x 2 from 64, else 32 x 4
+    or 16 x 4, whose eight warps take 32 frames each (measured at DCCRN's
+    twelve decoder launches, B 128 / 192, T 643: tools/block_phase_probe.py
+    --sweep)."""
+    if m >= 128:
+        return 128, 2
+    if m >= 64:
+        return 64, 2
+    return (32, 4) if m >= 32 else (16, 4)
+
+
+def block_pair(c2out: int) -> bool:
+    """Whether the bf16 decoder block computes output rows 2r and 2r + 1 in
+    one block (``csrc/block_mma.cuh``, kPair): their three input rows are
+    staged and activated once for both, 40% fewer stages a row, at the cost
+    of the odd row's empty first tap. For c2out <= 64, where the stages,
+    not the products, bound the kernel (measured at DCCRN's decoder, B 192,
+    T 643: dec2 to dec5 19 to 38% faster, dec0 and dec1 16 to 18% slower;
+    tools/block_phase_probe.py --sweep)."""
+    return c2out <= 64
+
+
+def _pack_mma_weights(w: torch.Tensor, bm: int, dtype: torch.dtype,
+                      pair: bool = False) -> Tuple[torch.Tensor, int]:
+    """HWIO [5, 2, K, M] (input and output channels each stacked [r...,
+    i...]) -> ``csrc/block_mma.cuh``'s [m_tiles, taps, kp / 16, 2, bm, 16]:
+    for each tile of bm rows (bm / 2 real output channels, then their
+    imaginary partners), tap and k16 step, both time taps' rows of 16
+    slots, slot 2p + h holding input channel h * K / 2 + 8 step + p (pairs
+    interleaved; zero past K / 2 pairs and past the last output channel).
+    With ``pair`` (the decoder block's row pairs) the tile's two halves are
+    the even and the odd output row, each bm / 4 real channels and their
+    partners, and the taps are the three input rows d = 0, 1, 2 of a pair:
+    jf = 2 d for the even row, 2 d - 1 for the odd (none for d = 0).
+    Returns it with kp = 16 ceil(K / 16)."""
+    k, m = w.shape[2], w.shape[3]
+    c, half = k // 2, m // 2
+    nks = -(-c // 8)
+    rows = bm // 4 if pair else bm // 2  # channels a tile, each part
+    m_tiles = -(-half // rows)
+    wt = w.to(dtype).permute(0, 1, 3, 2)  # [5, 2, M, K]
+    # (tap, parity, HWIO tap) of the kernel's K walk
+    taps = ([(d, parity, 2 * d - parity) for d in range(3) for parity in range(2)
+             if 2 * d - parity >= 0] if pair else [(jf, 0, jf) for jf in range(5)])
+    n_taps, halves = (3, 2) if pair else (5, 1)
+    out = wt.new_zeros((n_taps, 2, halves, 2, m_tiles * rows, nks * 8, 2))  # [tap, jt, parity,
+    for tap, parity, jf in taps:                                             #  part, j, pair, h]
+        for part in range(2):
+            for h in range(2):
+                out[tap, :, parity, part, :half, :c, h] = wt[jf, :, part * half:(part + 1) * half,
+                                                             h * c:(h + 1) * c]
+    out = out.view(n_taps, 2, halves, 2, m_tiles, rows, nks, 16)
+    # -> [tile, tap, step, jt, parity, part, r, slot]
+    out = out.permute(4, 0, 6, 1, 2, 3, 5, 7).reshape(m_tiles, n_taps, nks, 2, bm, 16)
+    return out.contiguous(), 16 * nks
 
 
 def _outputs(x: torch.Tensor, rows: int, with_stats: bool):
@@ -245,9 +306,11 @@ def _joined_rows(c2x: int, c2s: int) -> Tuple[list, list]:
 
 def _split_joined(w2: torch.Tensor, c2x: int, c2s: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joined-input rows [xr, sr, xi, si] of w2 -> (trunk rows, skip rows),
-    each in its own [r..., i...] order."""
-    x_rows, s_rows = _joined_rows(c2x, c2s)
-    return w2[:, :, x_rows], w2[:, :, s_rows]
+    each in its own [r..., i...] order. Slices, not an index list: indexing
+    a CUDA tensor with a list copies the list to the card and waits for it."""
+    cx, cs = c2x // 2, c2s // 2
+    return (torch.cat([w2[:, :, :cx], w2[:, :, cx + cs:2 * cx + cs]], dim=2),
+            torch.cat([w2[:, :, cx:cx + cs], w2[:, :, 2 * cx + cs:]], dim=2))
 
 
 def fused_deconv_block(x: torch.Tensor, skip: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
@@ -278,22 +341,36 @@ def fused_deconv_block(x: torch.Tensor, skip: torch.Tensor, w2: torch.Tensor, b2
         raise ValueError(f"fused_deconv_block runs on cuda or cpu tensors, not {x.device}")
     _check_cuda("fused_deconv_block", [x, skip],
                 [w2, b2, *coef_x, alpha_x, *coef_s, alpha_s])
+    args, (y, stats), _keep = _deconv_block_args(x, skip, w2, b2, coef_x, alpha_x, coef_s,
+                                                 alpha_s, f_in, c2x, c2s, c2out, with_stats)
+    _launch("deconv_block", args, x)
+    fused_deconv_block.launches += 1
+    return (y, stats) if with_stats else y
+
+
+def _deconv_block_args(x, skip, w2, b2, coef_x, alpha_x, coef_s, alpha_s, f_in, c2x, c2s, c2out,
+                       with_stats, tile=None, pair=None):
+    """The arguments of ``csrc/deconv_block.cu:deconv_block`` but the
+    stream, its outputs (y, stats or None) and the packed operands they
+    point to. bf16 packs the weights for row pairs where ``block_pair``
+    says so (or ``pair``) and for the tile ``block_tile`` picks for the
+    GEMM's rows (or ``tile``), f32 as ``block_gemm.cuh`` takes them."""
     wx, ws = _split_joined(w2, c2x, c2s)
-    wx, kp_x = _pack_weights(wx, x.dtype)
-    ws, kp_s = _pack_weights(ws, x.dtype)
+    bf16 = x.dtype == torch.bfloat16
+    pair = bf16 and (block_pair(c2out) if pair is None else pair)
+    bm, nb = (tile or block_tile(2 * c2out if pair else c2out)) if bf16 else (0, 0)
+    (wx, kp_x), (ws, kp_s) = ((_pack_mma_weights(w, bm, x.dtype, pair) if bf16 else
+                               _pack_weights(w, x.dtype)) for w in (wx, ws))
     cx = _pack_coeffs(coef_x, alpha_x, x.dtype, x.device)
     cs = _pack_coeffs(coef_s, alpha_s, x.dtype, x.device)
     bias = b2.float().contiguous()
     y, stats = _outputs(x, 2 * f_in * c2out, with_stats)
     batch, _, n_time = x.shape
-    _launch("deconv_block", [int(x.dtype == torch.bfloat16),
-                             x.data_ptr(), cx.data_ptr(), wx.data_ptr(), c2x, kp_x,
-                             skip.data_ptr(), cs.data_ptr(), ws.data_ptr(), c2s, kp_s,
-                             bias.data_ptr(), y.data_ptr(),
-                             stats.data_ptr() if with_stats else None,
-                             batch, f_in, c2out, n_time], x)
-    fused_deconv_block.launches += 1
-    return (y, stats) if with_stats else y
+    args = [int(bf16), x.data_ptr(), cx.data_ptr(), wx.data_ptr(), c2x, kp_x,
+            skip.data_ptr(), cs.data_ptr(), ws.data_ptr(), c2s, kp_s,
+            bias.data_ptr(), y.data_ptr(), stats.data_ptr() if with_stats else None,
+            batch, f_in, c2out, n_time, bm, nb, int(pair)]
+    return args, (y, stats), (wx, ws, cx, cs, bias)
 
 
 fused_conv_block.launches = 0
@@ -528,14 +605,29 @@ def dec_bwd_gz(gy: torch.Tensor, w2: torch.Tensor, *, f_in: int, c2x: int, c2s: 
         raise ValueError(f"dec_bwd_gz: w2 {tuple(w2.shape)}")
     if not _check_bwd("dec_bwd_gz", [gy], [w2]):
         return dec_bwd_gz_plain(gy, w2, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
-    w, kp = _pack_weights(w2.flip(0, 1).transpose(2, 3), gy.dtype)
+    args, (gzx, gzs), _keep = _dec_bwd_gz_args(gy, w2, f_in, c2x, c2s, c2out)
+    _launch("dec_bwd_gz", args, gy)
+    dec_bwd_gz.launches += 1
+    return gzx, gzs
+
+
+def _dec_bwd_gz_args(gy, w2, f_in, c2x, c2s, c2out, tile=None):
+    """The arguments of ``csrc/deconv_block_bwd.cu:dec_bwd_gz`` but the
+    stream, its outputs (g_zx, g_zs) and the packed weights: the taps
+    reversed (jf' = 4 - jf, jt' = 1 - jt), input and output swapped; bf16
+    packed for the tile ``block_tile`` picks (or ``tile``) over the joined
+    output channels."""
+    bf16 = gy.dtype == torch.bfloat16
+    bm, nb = (tile or block_tile(c2x + c2s)) if bf16 else (0, 0)
+    flipped = w2.flip(0, 1).transpose(2, 3)
+    w, kp = (_pack_mma_weights(flipped, bm, gy.dtype) if bf16 else
+             _pack_weights(flipped, gy.dtype))
     batch, _, n_time = gy.shape
     gzx = torch.empty((batch, f_in * c2x, n_time), dtype=gy.dtype, device=gy.device)
     gzs = torch.empty((batch, f_in * c2s, n_time), dtype=gy.dtype, device=gy.device)
-    _launch("dec_bwd_gz", [_is_bf16(gy), gy.data_ptr(), w.data_ptr(), c2out, kp,
-                           gzx.data_ptr(), c2x, gzs.data_ptr(), c2s, batch, f_in, n_time], gy)
-    dec_bwd_gz.launches += 1
-    return gzx, gzs
+    args = [int(bf16), gy.data_ptr(), w.data_ptr(), c2out, kp, gzx.data_ptr(), c2x,
+            gzs.data_ptr(), c2s, batch, f_in, n_time, bm, nb]
+    return args, (gzx, gzs), (w,)
 
 
 def dec_bwd_dw(zx: torch.Tensor, zs: torch.Tensor, gy: torch.Tensor, *, f_in: int, c2x: int,

@@ -3,6 +3,10 @@
 // Shared by conv_block.cu (encoder block) and deconv_block.cu (decoder
 // block); each source instantiates only its own variant. What the two
 // compute, and what bounds them, is written at the top of each source.
+// launch sends the bf16 decoder block and the bf16 decoder input gradient
+// to block_mma.cuh's mma_kernel (the same sums with weight reuse, 16-byte
+// staging and a pipelined ring); the encoder block, its input gradient and
+// every f32 variant run block_kernel below, this file's first design.
 // The input gradients of the two blocks are the same sums with the roles
 // of the indexings swapped (conv_block_bwd.cu, deconv_block_bwd.cu): they
 // run this kernel as its kGrad variant: the input staged as it is (no
@@ -49,7 +53,12 @@
 
 #include <cstdint>
 
+#include "block_mma.cuh"
+#include "mma_util.cuh"
+
 namespace blockgemm {
+
+using mmautil::mma_bf16;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -77,6 +86,8 @@ struct Params {
   int f_in, f_out, c2out, n_time, m_tiles;
   void* y2;           // kGrad: null, or with y a split of the output channels (out_row)
   int c2a;            // with y2: the channels (r and i) that go to y
+  int bm, nb;         // bf16 rows 4 and 7: the tile of block_mma.cuh the caller packed for
+  int pair;           // bf16 decoder block: output row pairs a block (block_mma.cuh)
 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -133,14 +144,6 @@ __device__ __forceinline__ int out_channel(int r, int m_tile, int c_half) {
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Z rows of frames [t_first, t_first + ZROWS) for channels [ci0, ci0 + BK)
@@ -384,18 +387,43 @@ int launch(Params p, int batch, cudaStream_t stream) {
     if (p.reg[i].c2 <= 0 || p.reg[i].c2 % 2 != 0 || p.reg[i].kp % BK != 0 ||
         p.reg[i].kp < p.reg[i].c2)
       return static_cast<int>(cudaErrorInvalidValue);
-  const int bm = p.c2out <= 16 ? 16 : p.c2out <= 32 ? 32 : p.c2out <= 64 ? 64 : 128;
-  p.m_tiles = (p.c2out / 2 + bm / 2 - 1) / (bm / 2);
-  const long long z = static_cast<long long>(batch) * p.m_tiles;
-  if (z > 65535 || p.f_out > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((p.n_time + BN - 1) / BN, p.f_out, static_cast<unsigned>(z));
-  switch (bm) {
-    case 16: block_kernel<T, 16, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
-    case 32: block_kernel<T, 32, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
-    case 64: block_kernel<T, 64, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
-    default: block_kernel<T, 128, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+  if constexpr (sizeof(T) == 2 && kDecoder != kGrad) {
+    // the decoder block (row 4) and the decoder's input gradient (row 7):
+    // block_mma.cuh, on weights packed pair-interleaved for the tile (bm, nb)
+    blockmma::Params q{};
+    for (int i = 0; i < p.n_reg; ++i) {
+      const Region& rg = p.reg[i];
+      if (rg.kp != BK * ((rg.c2 / 2 + 7) / 8)) return static_cast<int>(cudaErrorInvalidValue);
+      q.reg[i] = {static_cast<const blockmma::bf16*>(rg.x), rg.coef,
+                  static_cast<const blockmma::bf16*>(rg.w), rg.c2, rg.kp / BK};
+    }
+    q.n_reg = p.n_reg;
+    q.bias = p.bias;
+    q.y = static_cast<blockmma::bf16*>(p.y);
+    q.stats = p.stats;
+    q.y2 = static_cast<blockmma::bf16*>(p.y2);
+    q.c2a = p.c2a;
+    q.batch = batch;
+    q.f_in = p.f_in;
+    q.f_out = p.f_out;
+    q.c2out = p.c2out;
+    q.n_time = p.n_time;
+    return blockmma::launch<kDecoder, kGrad>(q, p.bm, p.nb, p.pair != 0, stream);
+  } else {
+    // block_kernel: the f32 variants, the encoder block and its input gradient
+    const int bm = p.c2out <= 16 ? 16 : p.c2out <= 32 ? 32 : p.c2out <= 64 ? 64 : 128;
+    p.m_tiles = (p.c2out / 2 + bm / 2 - 1) / (bm / 2);
+    const long long z = static_cast<long long>(batch) * p.m_tiles;
+    if (z > 65535 || p.f_out > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((p.n_time + BN - 1) / BN, p.f_out, static_cast<unsigned>(z));
+    switch (bm) {
+      case 16: block_kernel<T, 16, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+      case 32: block_kernel<T, 32, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+      case 64: block_kernel<T, 64, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+      default: block_kernel<T, 128, kDecoder, kGrad><<<grid, THREADS, 0, stream>>>(p); break;
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace blockgemm

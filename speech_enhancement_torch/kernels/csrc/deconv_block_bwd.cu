@@ -13,11 +13,17 @@
 //     g_z[fi, cj, t] = sum over jf, jt of W[jf, jt, cj, co] g[2 fi + 2 - jf, co, t - jt]
 //   (g = 0 at frame -1 and outside the rows): every input row sees all 5
 //   taps at stride 2, the encoder's forward indexing once the taps are
-//   reindexed jf' = 4 - jf, jt' = 1 - jt. It runs block_gemm.cuh's implicit
-//   GEMM (the encoder variant) on g as it is, with the weights
-//   W[4 - jf', 1 - jt'] packed [5, 2, C2x + C2s, C2out padded to 16], and
-//   its epilogue splits the joined channels into g_zx [B, f_in * C2x, T]
-//   and g_zs [B, f_in * C2s, T]; the joined gradient is never stored.
+//   reindexed jf' = 4 - jf, jt' = 1 - jt. It runs the implicit GEMM on g
+//   as it is (the encoder indexing, kGrad), with the weights W[4 - jf',
+//   1 - jt'] transposed (C2x + C2s rows over C2out channels), and its
+//   epilogue splits the joined channels into g_zx [B, f_in * C2x, T] and
+//   g_zs [B, f_in * C2s, T]; the joined gradient is never stored. bf16
+//   runs block_mma.cuh's mma_kernel (weights reused across NB batch items,
+//   K in k16 steps of eight interleaved complex pairs of g, 16-byte staging
+//   realigned in registers, two stages with one barrier a stage, cp.async
+//   weights, ldmatrix and mma.sync; tiles 128 x 2 for dec0 to dec3, 64 x 2
+//   for dec4, 32 x 4 for dec5, from kernels/conv_block.py: block_tile); f32
+//   block_gemm.cuh's block_kernel.
 // dec_bwd_dw: for the recomputed activated inputs z_x, z_s and g, dW[jf,
 //   jt] = sum over (b, fo with fo + jf even, t) of z[(fo + jf - 2) / 2,
 //   t + jt] g[fo, t]^T, both regions in one launch, as split-K partials
@@ -39,10 +45,15 @@
 // Rounding, as the JAX kernels: g and the weights in the activation type,
 // f32 accumulation, g_zx and g_zs stored in the activation type, dW in f32.
 //
+// What the input gradient's time goes to (tools/block_phase_probe.py,
+// PERF.md section 6): dec0 to dec2 stage about 2 TB/s with the products
+// taking three quarters of a block; dec4 and dec5, with a K of 16 and 2
+// channels a tap, wait out each stage's load latency.
+//
 // ptxas (sm_90a, this source and its decoder/encoder twin): the weight-
-// gradient kernels' reports are in PERF.md; the bf16 input-gradient
-// variants of block_gemm.cuh, tile heights 16 / 32 / 64 / 128, 71-72 /
-// 72-74 / 79 / 122 registers, no spills; their f32 variants up to 255
+// gradient kernels' reports are in PERF.md; the bf16 input gradient's tiles
+// 16 x 4 / 32 x 4 / 64 x 2 / 128 x 2, 128 / 126 / 107 / 127 registers (two
+// blocks an SM), no spills; the f32 variants of block_kernel up to 255
 // registers with 40 bytes of spills at height 128 (used only by the small
 // f32 model). chip_smoke.py logs the report of each build.
 
@@ -54,7 +65,7 @@ namespace {
 
 template <typename T>
 int run_gz(const void* gy, const void* w, int c2out, int kp, void* gzx, int c2x, void* gzs,
-           int c2s, int batch, int f_in, int n_time, void* stream) {
+           int c2s, int batch, int f_in, int n_time, int bm, int nb, void* stream) {
   blockgemm::Params p{};
   p.reg[0] = {gy, nullptr, w, c2out, kp};
   p.n_reg = 1;
@@ -65,6 +76,8 @@ int run_gz(const void* gy, const void* w, int c2out, int kp, void* gzx, int c2x,
   p.f_out = f_in;     // the rows of g_zx and g_zs
   p.c2out = c2x + c2s;
   p.n_time = n_time;
+  p.bm = bm;
+  p.nb = nb;
   return blockgemm::launch<T, false, true>(p, batch, static_cast<cudaStream_t>(stream));
 }
 
@@ -90,18 +103,21 @@ int run_dw(const void* zx, int c2x, const void* zs, int c2s, const void* gy, voi
 
 }  // namespace
 
-// gy [batch, 2 f_in * c2out, T] (bf16 if is_bf16, else f32); w [5, 2, c2x
-// + c2s, kp] in gy's type (flipped, transposed, joined order, zero past
-// c2out); gzx [batch, f_in * c2x, T] and gzs [batch, f_in * c2s, T] in gy's
-// type. All contiguous on the current device. Launches on `stream`,
-// returns cudaGetLastError().
+// gy [batch, 2 f_in * c2out, T] (bf16 if is_bf16, else f32); w in gy's
+// type, the taps flipped and transposed, output rows in the joined order:
+// bf16 [m_tiles, 5, kp / 16, 2, bm, 16] packed for block_mma.cuh's tile (bm,
+// nb), kp = 16 ceil(c2out / 16) (pair-interleaved channels of g), f32 [5, 2,
+// c2x + c2s, kp] zero past c2out (bm, nb unused); gzx [batch, f_in * c2x, T]
+// and gzs [batch, f_in * c2s, T] in gy's type. All contiguous on the current
+// device. Launches on `stream`, returns cudaGetLastError().
 extern "C" int dec_bwd_gz(int is_bf16, const void* gy, const void* w, int c2out, int kp,
                           void* gzx, int c2x, void* gzs, int c2s, int batch, int f_in,
-                          int n_time, void* stream) {
+                          int n_time, int bm, int nb, void* stream) {
   if (is_bf16)
     return run_gz<__nv_bfloat16>(gy, w, c2out, kp, gzx, c2x, gzs, c2s, batch, f_in, n_time,
-                                 stream);
-  return run_gz<float>(gy, w, c2out, kp, gzx, c2x, gzs, c2s, batch, f_in, n_time, stream);
+                                 bm, nb, stream);
+  return run_gz<float>(gy, w, c2out, kp, gzx, c2x, gzs, c2s, batch, f_in, n_time, bm, nb,
+                       stream);
 }
 
 // zx [batch, f_in * c2x, T], zs [batch, f_in * c2s, T] and gy [batch, 2 f_in

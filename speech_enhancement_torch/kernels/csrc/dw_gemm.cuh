@@ -89,7 +89,11 @@
 
 #include <cstdint>
 
+#include "mma_util.cuh"
+
 namespace dwgemm {
+
+using namespace mmautil;  // ldmatrix, mma.sync, ld_pred, realign, mask_frames
 
 struct Region {
   const void* z;  // [B, f_in * c2, T], activation type
@@ -106,8 +110,6 @@ struct Params {
 };
 
 // ---------------------------------------------------------------- bf16 --
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BK = 64;            // frames a step
 constexpr int PITCH = BK + 8;     // staged row pitch (elements)
@@ -156,70 +158,6 @@ template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int WARPS_K_> struct Cfg
   static_assert(BM % (ROWS_PER_WARP * WARPS) == 0 && BN % 2 == 0, "staging rounds");
   static_assert(BK / 16 % WARPS_K == 0, "k16 split");
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes from global memory through the read-only path, or zeros when
-// !ok; a predicated load, no branch.
-__device__ __forceinline__ uint4 ld_pred(const uint4* src, bool ok) {
-  uint4 v;
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %5, 0;\n"
-      " mov.b32 %0, 0;\n mov.b32 %1, 0;\n mov.b32 %2, 0;\n mov.b32 %3, 0;\n"
-      " @p ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}\n"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(src), "r"(static_cast<int>(ok)));
-  return v;
-}
-
-// Elements [s, s + 8) of the 16 bf16 elements lo:hi (two per word, the
-// lower element in the low half), s in [0, 8].
-__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int s) {
-  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  uint32_t x[6], y[5];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) x[k] = s & 4 ? w[k + 2] : w[k];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) y[k] = s & 2 ? x[k + 1] : x[k];
-  const unsigned sh = (s & 1) * 16;
-  uint32_t o[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = s == 8 ? w[k + 4] : __funnelshift_r(y[k], y[k + 1], sh);
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// Zero the elements of a realigned chunk whose frames f0 .. f0 + 7 fall
-// outside [0, n).
-__device__ __forceinline__ uint4 mask_frames(uint4 v, int f0, int n) {
-  if (f0 >= 0 && f0 + 8 <= n) return v;
-  uint32_t o[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int f = f0 + 2 * k;
-    o[k] &= (static_cast<unsigned>(f) < static_cast<unsigned>(n) ? 0xffffu : 0u) |
-            (static_cast<unsigned>(f + 1) < static_cast<unsigned>(n) ? 0xffff0000u : 0u);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
 
 // A step: its index in the split's list, batch element, first frame and
 // output row m.
@@ -326,13 +264,6 @@ __global__ void __launch_bounds__(C::THREADS) dw_mma_kernel(const MmaParams p) {
   auto interior = [&](const Step& st) {
     return st.t0 >= DELTA && st.t0 + BK + 1 - DELTA <= p.n_time;
   };
-  auto aligned = [](const bf16* src) {
-    return reinterpret_cast<const uint4*>(reinterpret_cast<uintptr_t>(src) &
-                                          ~static_cast<uintptr_t>(15));
-  };
-  auto residue = [](const bf16* src) {
-    return static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) >> 1);
-  };
   // chunk k of a row whose frame fs (span frames wanted) is src: zeros when
   // the row is out or none of the chunk's frames is wanted, so no load
   // leaves the row's frames
@@ -340,7 +271,7 @@ __global__ void __launch_bounds__(C::THREADS) dw_mma_kernel(const MmaParams p) {
     const int cf = fs - residue(src) + 8 * k;
     const bool want = edge ? (cf + 8 > max(fs, 0)) & (cf < min(fs + span, p.n_time))
                            : cf < fs + span;  // chunk 8 of z is past its span at residue 0
-    return ld_pred(aligned(src) + k, ok & want);
+    return ld_pred(aligned_chunk(src) + k, ok & want);
   };
 
   float acc[C::ACC];

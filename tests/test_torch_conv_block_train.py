@@ -409,3 +409,28 @@ def test_dw_staging_realigns_every_residue(residue, fs):
             want += [int(memory[row + f]) if 0 <= f < n_time else 0
                      for f in range(f0, f0 + 8)]
         assert got == want
+
+
+@pytest.mark.parametrize("c2x,c2s,c2out,batch,f_in,n_time,tile", [
+    (16, 16, 2, 1, 8, 21, None),     # dec5's g (two channels: one pair), B 1, T < one tile
+    (6, 4, 6, 5, 4, 70, None),       # three pairs, ragged batch group and frame tile
+    (8, 8, 18, 3, 2, 67, (16, 4)),   # two k16 steps a tap (9 pairs), four row tiles
+    (64, 64, 16, 2, 2, 65, (128, 2)),  # the large tile; frame -1 of each segment
+])
+def test_mma_schedule_matches_plain_decoder_input_gradient(rng, c2x, c2s, c2out, batch, f_in,
+                                                            n_time, tile):
+    """dec_bwd_gz's bf16 kernel walked in numpy (test_torch_conv_block.py:
+    _emulate_mma, the encoder indexing on g as it is) with the wrapper's
+    packing of the flipped, transposed weights over the joined output
+    channels, split by out_row, against the plain version."""
+    from test_torch_conv_block import _emulate_mma
+    gy = _normal(rng, (batch, 2 * f_in * c2out, n_time))
+    w2 = torch.from_numpy(_normal(rng, (5, 2, c2x + c2s, c2out), 0.2))
+    tile = tile or pk.block_tile(c2x + c2s)
+    packed, kp = pk._pack_mma_weights(w2.flip(0, 1).transpose(2, 3), tile[0], torch.float32)
+    assert kp == 16 * -(-c2out // 16)
+    joined = _emulate_mma([(gy.astype(np.float64), None, None, packed.numpy(), c2out)],
+                          2 * f_in, f_in, c2x + c2s, n_time, False, True, tile)
+    want = pk.dec_bwd_gz(torch.from_numpy(gy), w2, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+    for got, ref in zip(_out_row_split(joined, c2x), want):
+        np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)

@@ -301,6 +301,93 @@ def test_decoder_backward_kernels_match_plain(card, dtype, batch, f_in, c2x, c2s
     _assert_dw_close(dw, cb.dec_bwd_dw_plain(zx, zs, gy, **shapes))
 
 
+# the decoder blocks of configs/dccrn_vbd.yaml (f_in, c2x, c2s, c2out) at T = 643,
+# then ragged shapes: T < one frame tile with B 1, pairs not a multiple of 8
+# with a ragged batch group, two row tiles with the last one ragged
+MMA_SHAPES = [(2, 4, 256, 256, 256, 643), (2, 8, 256, 256, 128, 643),
+              (2, 16, 128, 128, 64, 643), (1, 32, 64, 64, 32, 643), (1, 64, 32, 32, 16, 643),
+              (3, 128, 16, 16, 2, 643), (1, 8, 16, 16, 2, 21), (5, 4, 6, 4, 6, 70),
+              (3, 2, 8, 6, 34, 67)]
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,f_in,c2x,c2s,c2out,n_time", MMA_SHAPES)
+def test_decoder_block_mma_kernel_matches_plain(card, with_stats, dtype, batch, f_in, c2x, c2s,
+                                                c2out, n_time):
+    """Row 4: bf16 runs block_mma.cuh's kernel, f32 block_gemm.cuh's."""
+    (x, s), w2, b2, (cx, cs), (ax, a_s) = _block_inputs(11, card, dtype, batch, f_in,
+                                                        (c2x, c2s), c2out, n_time)
+    shapes = dict(f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out, with_stats=with_stats)
+    before = fused_deconv_block.launches
+    got = fused_deconv_block(x, s, w2, b2, cx, ax, cs, a_s, **shapes)
+    want = fused_deconv_block_plain(x, s, w2, b2, cx, ax, cs, a_s, **shapes)
+    torch.cuda.synchronize()
+    assert fused_deconv_block.launches == before + 1
+    _assert_block_close(got, want, with_stats, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,f_in,c2x,c2s,c2out,n_time", MMA_SHAPES)
+def test_decoder_input_gradient_mma_kernel_matches_plain(card, dtype, batch, f_in, c2x, c2s,
+                                                         c2out, n_time):
+    """Row 7: bf16 runs block_mma.cuh's kernel, f32 block_gemm.cuh's."""
+    rng = np.random.default_rng(12)
+    gy = torch.from_numpy(rng.standard_normal((batch, 2 * f_in * c2out, n_time),
+                                              dtype=np.float32)).to(card, dtype)
+    w2 = _randn((5, 2, c2x + c2s, c2out), 13, card) / np.sqrt(10 * (c2x + c2s))
+    shapes = dict(f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+    before = cb.dec_bwd_gz.launches
+    gzx, gzs = cb.dec_bwd_gz(gy, w2, **shapes)
+    torch.cuda.synchronize()
+    assert cb.dec_bwd_gz.launches == before + 1
+    want_x, want_s = cb.dec_bwd_gz_plain(gy, w2, **shapes)
+    _assert_gz_close(gzx, want_x, dtype)
+    _assert_gz_close(gzs, want_s, dtype)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("tile", [(128, 2), (64, 2), (32, 4), (16, 4)])
+def test_decoder_mma_kernels_take_every_tile(card, tile, pair):
+    """Both bf16 decoder kernels with each tile of block_mma.cuh:launch (the
+    forward with and without row-pair blocks), at dec2's widths (B 5: a
+    ragged batch group), against the plain versions."""
+    batch, f_in, c2x, c2s, c2out, n_time = 5, 4, 128, 128, 64, 130
+    (x, s), w2, b2, (cx, cs), (ax, a_s) = _block_inputs(14, card, torch.bfloat16, batch, f_in,
+                                                        (c2x, c2s), c2out, n_time)
+    args, outs, _keep = cb._deconv_block_args(x, s, w2, b2, cx, ax, cs, a_s, f_in, c2x, c2s,
+                                              c2out, True, tile, pair)
+    cb._launch("deconv_block", args, x)
+    want = fused_deconv_block_plain(x, s, w2, b2, cx, ax, cs, a_s, f_in=f_in, c2x=c2x,
+                                    c2s=c2s, c2out=c2out, with_stats=True)
+    torch.cuda.synchronize()
+    _assert_block_close(outs, want, True, torch.bfloat16)
+    gy = _randn((batch, 2 * f_in * c2out, n_time), 15, card).bfloat16()
+    args, (gzx, gzs), _keep = cb._dec_bwd_gz_args(gy, w2, f_in, c2x, c2s, c2out, tile)
+    cb._launch("dec_bwd_gz", args, gy)
+    want_x, want_s = cb.dec_bwd_gz_plain(gy, w2, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
+    torch.cuda.synchronize()
+    _assert_gz_close(gzx, want_x, torch.bfloat16)
+    _assert_gz_close(gzs, want_s, torch.bfloat16)
+
+
+def test_encoder_kernels_keep_block_kernel(card):
+    """Rows 3 and 5 (the encoder block and its input gradient) still run
+    block_gemm.cuh's block_kernel in bf16; only the decoder's rows 4 and 7
+    run block_mma.cuh's mma_kernel in bf16 (the ptxas report of each build
+    names the kernels it compiled)."""
+    from speech_enhancement_torch.kernels import _build
+    _build.build(["conv_block", "conv_block_bwd", "deconv_block", "deconv_block_bwd"])
+    logs = {name: _build.build_log(name) for name in ("conv_block", "conv_block_bwd",
+                                                       "deconv_block", "deconv_block_bwd")}
+    bf16_block, mma = "block_kernelI13__nv_bfloat16", "8blockmma10mma_kernel"
+    for name in ("conv_block", "conv_block_bwd"):
+        assert bf16_block in logs[name] and mma not in logs[name]
+    for name in ("deconv_block", "deconv_block_bwd"):
+        assert mma in logs[name] and bf16_block not in logs[name]
+        assert "block_kernelIf" in logs[name]  # the f32 variants
+
+
 def _leaf_close(got, want, rel=2e-3):
     """Within ``rel`` of the leaf's largest magnitude (tests/test_dccrn_fused.py:97-113)."""
     scale = max(want.abs().max().item(), got.abs().max().item(), 1e-8)

@@ -176,10 +176,10 @@ VARIANTS = {
     "no-products": [("      for (int j = 0; j < C::NT; ++j) mma_bf16(",
                      "      for (int j = 0; j < C::NT * 0; ++j) mma_bf16(")],
     # products and realignment alone: no global loads (zeros staged)
-    "no-loads": [("    return ld_pred(aligned(src) + k, ok & want);",
-                  "    return ld_pred(aligned(src) + k, ok & want & (p.batch < 0));")],
-    # loads through L2 only
-    "cg": [(" @p ld.global.nc.v4.u32", " @p ld.global.cg.v4.u32")],
+    "no-loads": [("    return ld_pred(aligned_chunk(src) + k, ok & want);",
+                  "    return ld_pred(aligned_chunk(src) + k, ok & want & (p.batch < 0));")],
+    # loads through L2 only (the load helper lives in mma_util.cuh)
+    "cg": [],
     # twice the warps on the 128 x 128 and 64 x 64 tiles (warp tiles 32 x 32, 32 x 16)
     "more-warps": [("launch_mma<Cfg<128, 128, 2, 4, 1>", "launch_mma<Cfg<128, 128, 4, 4, 1>"),
                    ("launch_mma<Cfg<64, 64, 2, 2, 1>", "launch_mma<Cfg<64, 64, 2, 4, 1>")],
@@ -219,6 +219,10 @@ def build(csrc: Path, design: str, stamped: bool, variant: str = "none") -> ctyp
         shutil.copy(src, out / src.name)
     cuh = (csrc / "dw_gemm.cuh").read_text()
     cuh = _patch(cuh, VARIANTS[variant])
+    if variant == "cg":
+        util = (csrc / "mma_util.cuh").read_text()
+        (out / "mma_util.cuh").write_text(
+            _patch(util, [(" @p ld.global.nc.v4.u32", " @p ld.global.cg.v4.u32")]))
     if stamped:
         cuh = _patch(cuh, [("namespace dwgemm {\n", "namespace dwgemm {\n" + PRELUDE)])
         cuh = _after(cuh) if design == "after" else _before(cuh, design.endswith("first"))
