@@ -130,9 +130,9 @@ _REGION = [_P, _P, _P, _I, _I]
 # C entry point -> (library, argument types); every entry point ends with
 # the stream and returns cudaGetLastError()
 _ENTRIES = {
-    "conv_block": ("conv_block", [_I] + _REGION + [_P] * 3 + [_I] * 4 + [_P]),
+    "conv_block": ("conv_block", [_I] + _REGION + [_P] * 3 + [_I] * 7 + [_P]),
     "deconv_block": ("deconv_block", [_I] + _REGION * 2 + [_P] * 3 + [_I] * 7 + [_P]),
-    "enc_bwd_gz": ("conv_block_bwd", [_I, _P, _P, _I, _I, _P] + [_I] * 4 + [_P]),
+    "enc_bwd_gz": ("conv_block_bwd", [_I, _P, _P, _I, _I, _P] + [_I] * 7 + [_P]),
     "enc_bwd_dw": ("conv_block_bwd", [_I, _P, _P, _P] + [_I] * 8 + [_P]),
     "dec_bwd_gz": ("deconv_block_bwd", [_I, _P, _P, _I, _I, _P, _I, _P] + [_I] * 6 + [_P]),
     "dec_bwd_dw": ("deconv_block_bwd", [_I, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]),
@@ -180,13 +180,16 @@ def _pack_weights(w: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, in
 
 
 def block_tile(m: int) -> Tuple[int, int]:
-    """(BM, NB) of the bf16 decoder-block kernels (``csrc/block_mma.cuh``)
-    for a GEMM of ``m`` output channels: BM channels x NB segments of 64
-    frames, each a batch item, so that every staged weight step serves 128
-    or 256 frames. 128 x 2 from 128 channels, 64 x 2 from 64, else 32 x 4
-    or 16 x 4, whose eight warps take 32 frames each (measured at DCCRN's
-    twelve decoder launches, B 128 / 192, T 643: tools/block_phase_probe.py
-    --sweep)."""
+    """(BM, NB) of the bf16 block kernels (``csrc/block_mma.cuh``) for a
+    GEMM of ``m`` output channels (twice the channels with row pairs): BM
+    channels x NB segments of 64 frames, each a batch item, so that every
+    staged weight step serves 128 or 256 frames. 128 x 2 from 128 channels,
+    64 x 2 from 64, else 32 x 4 or 16 x 4, whose eight warps take 32 frames
+    each. Measured with tools/block_phase_probe.py --sweep at T 643: the
+    best of the four tiles at all twelve decoder launches (B 128 / 192) and
+    at all twelve encoder launches (rows 3 and 5, B 192 / 128; e.g. enc1's
+    forward 2.28 ms against 3.13 to 3.89 on the other tiles, enc4's input
+    gradient 2.34 against 3.20 to 6.86)."""
     if m >= 128:
         return 128, 2
     if m >= 64:
@@ -194,30 +197,37 @@ def block_tile(m: int) -> Tuple[int, int]:
     return (32, 4) if m >= 32 else (16, 4)
 
 
-def block_pair(c2out: int) -> bool:
-    """Whether the bf16 decoder block computes output rows 2r and 2r + 1 in
-    one block (``csrc/block_mma.cuh``, kPair): their three input rows are
-    staged and activated once for both, 40% fewer stages a row, at the cost
-    of the odd row's empty first tap. For c2out <= 64, where the stages,
-    not the products, bound the kernel (measured at DCCRN's decoder, B 192,
-    T 643: dec2 to dec5 19 to 38% faster, dec0 and dec1 16 to 18% slower;
-    tools/block_phase_probe.py --sweep)."""
-    return c2out <= 64
+def block_pair(m: int) -> bool:
+    """Whether a bf16 block kernel with a GEMM of ``m`` output channels
+    computes output rows 2r and 2r + 1 in one block (``csrc/block_mma.cuh``,
+    kPair): the input rows they share are staged and activated once for
+    both (the decoder block and the encoder's input gradient: 40% fewer
+    stages a row, the odd row's first tap empty; the encoder block: 30%
+    fewer stages, 40% more products). For m <= 64, where the stages, not
+    the products, bound the kernel. Measured with tools/block_phase_probe.py
+    --sweep at T 643, each block's best tile with and without: the decoder
+    block (B 192) dec2 to dec5 19 to 38% faster, dec0 and dec1 16 to 18%
+    slower; the encoder block (B 192) enc0 21% and enc2 8% faster, enc1 even,
+    enc3 to enc5 22% slower; its input gradient (B 128) enc0 40%, enc1 23%,
+    enc2 2% and enc3 12% faster, enc4 and enc5 18% slower. The decoder's
+    input gradient (row 7, the encoder indexing) takes no pairs."""
+    return m <= 64
 
 
-def _pack_mma_weights(w: torch.Tensor, bm: int, dtype: torch.dtype,
-                      pair: bool = False) -> Tuple[torch.Tensor, int]:
+def _pack_mma_weights(w: torch.Tensor, bm: int, dtype: torch.dtype, pair: bool = False,
+                      decoder: bool = True) -> Tuple[torch.Tensor, int]:
     """HWIO [5, 2, K, M] (input and output channels each stacked [r...,
     i...]) -> ``csrc/block_mma.cuh``'s [m_tiles, taps, kp / 16, 2, bm, 16]:
     for each tile of bm rows (bm / 2 real output channels, then their
     imaginary partners), tap and k16 step, both time taps' rows of 16
     slots, slot 2p + h holding input channel h * K / 2 + 8 step + p (pairs
     interleaved; zero past K / 2 pairs and past the last output channel).
-    With ``pair`` (the decoder block's row pairs) the tile's two halves are
-    the even and the odd output row, each bm / 4 real channels and their
-    partners, and the taps are the three input rows d = 0, 1, 2 of a pair:
-    jf = 2 d for the even row, 2 d - 1 for the odd (none for d = 0).
-    Returns it with kp = 16 ceil(K / 16)."""
+    With ``pair`` (row pairs) the tile's two halves are the even and the
+    odd output row, each bm / 4 real channels and their partners, and the
+    taps are the input rows d of a pair: on the ``decoder`` indexing d = 0,
+    1, 2 with jf = 2 d for the even row, 2 d - 1 for the odd (none for d =
+    0); on the encoder's d = 0..6 with jf = d for the even row, d - 2 for
+    the odd. Returns it with kp = 16 ceil(K / 16)."""
     k, m = w.shape[2], w.shape[3]
     c, half = k // 2, m // 2
     nks = -(-c // 8)
@@ -225,9 +235,16 @@ def _pack_mma_weights(w: torch.Tensor, bm: int, dtype: torch.dtype,
     m_tiles = -(-half // rows)
     wt = w.to(dtype).permute(0, 1, 3, 2)  # [5, 2, M, K]
     # (tap, parity, HWIO tap) of the kernel's K walk
-    taps = ([(d, parity, 2 * d - parity) for d in range(3) for parity in range(2)
-             if 2 * d - parity >= 0] if pair else [(jf, 0, jf) for jf in range(5)])
-    n_taps, halves = (3, 2) if pair else (5, 1)
+    if not pair:
+        taps = [(jf, 0, jf) for jf in range(5)]
+    elif decoder:
+        taps = [(d, parity, 2 * d - parity) for d in range(3) for parity in range(2)
+                if 2 * d - parity >= 0]
+    else:
+        taps = [(d, parity, d - 2 * parity) for d in range(7) for parity in range(2)
+                if 0 <= d - 2 * parity < 5]
+    n_taps = 1 + max(tap for tap, _, _ in taps)
+    halves = 2 if pair else 1
     out = wt.new_zeros((n_taps, 2, halves, 2, m_tiles * rows, nks * 8, 2))  # [tap, jt, parity,
     for tap, parity, jf in taps:                                             #  part, j, pair, h]
         for part in range(2):
@@ -282,17 +299,34 @@ def fused_conv_block(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, a_diag
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_block runs on cuda or cpu tensors, not {x.device}")
     _check_cuda("fused_conv_block", [x], [w2, b2, a_diag, a_cross, c0, alpha])
+    args, (y, stats), _keep = _conv_block_args(x, w2, b2, a_diag, a_cross, c0, alpha, f_in,
+                                               c2in, c2out, with_stats)
+    _launch("conv_block", args, x)
+    fused_conv_block.launches += 1
+    return (y, stats) if with_stats else y
+
+
+def _conv_block_args(x, w2, b2, a_diag, a_cross, c0, alpha, f_in, c2in, c2out, with_stats,
+                     tile=None, pair=None):
+    """The arguments of ``csrc/conv_block.cu:conv_block`` but the stream,
+    its outputs (y, stats or None) and the packed operands they point to.
+    bf16 packs the weights for row pairs where ``block_pair`` says so and
+    the f_in / 2 output rows pair up (or ``pair``) and for the tile
+    ``block_tile`` picks for the GEMM's rows (or ``tile``), f32 as
+    ``block_gemm.cuh`` takes them."""
+    bf16 = x.dtype == torch.bfloat16
+    pair = bf16 and (block_pair(c2out) and f_in % 4 == 0 if pair is None else pair)
+    bm, nb = (tile or block_tile(2 * c2out if pair else c2out)) if bf16 else (0, 0)
+    w, kp = (_pack_mma_weights(w2, bm, x.dtype, pair, decoder=False) if bf16 else
+             _pack_weights(w2, x.dtype))
     coef = _pack_coeffs((a_diag, a_cross, c0), alpha, x.dtype, x.device)
-    w, kp = _pack_weights(w2, x.dtype)
     bias = b2.float().contiguous()
     y, stats = _outputs(x, f_in // 2 * c2out, with_stats)
     batch, _, n_time = x.shape
-    _launch("conv_block", [int(x.dtype == torch.bfloat16), x.data_ptr(), coef.data_ptr(),
-                           w.data_ptr(), c2in, kp, bias.data_ptr(), y.data_ptr(),
-                           stats.data_ptr() if with_stats else None,
-                           batch, f_in, c2out, n_time], x)
-    fused_conv_block.launches += 1
-    return (y, stats) if with_stats else y
+    args = [int(bf16), x.data_ptr(), coef.data_ptr(), w.data_ptr(), c2in, kp, bias.data_ptr(),
+            y.data_ptr(), stats.data_ptr() if with_stats else None, batch, f_in, c2out, n_time,
+            bm, nb, int(pair)]
+    return args, (y, stats), (w, coef, bias)
 
 
 def _joined_rows(c2x: int, c2s: int) -> Tuple[list, list]:
@@ -562,14 +596,29 @@ def enc_bwd_gz(gy: torch.Tensor, w2: torch.Tensor, *, f_in: int, c2in: int,
         raise ValueError(f"enc_bwd_gz: w2 {tuple(w2.shape)}")
     if not _check_bwd("enc_bwd_gz", [gy], [w2]):
         return enc_bwd_gz_plain(gy, w2, f_in=f_in, c2in=c2in, c2out=c2out)
-    # taps reversed (jf' = 4 - jf, jt' = 1 - jt), input and output swapped
-    w, kp = _pack_weights(w2.flip(0, 1).transpose(2, 3), gy.dtype)
-    batch, _, n_time = gy.shape
-    gz = torch.empty((batch, f_in * c2in, n_time), dtype=gy.dtype, device=gy.device)
-    _launch("enc_bwd_gz", [_is_bf16(gy), gy.data_ptr(), w.data_ptr(), c2out, kp, gz.data_ptr(),
-                           batch, f_in, c2in, n_time], gy)
+    args, gz, _keep = _enc_bwd_gz_args(gy, w2, f_in, c2in, c2out)
+    _launch("enc_bwd_gz", args, gy)
     enc_bwd_gz.launches += 1
     return gz
+
+
+def _enc_bwd_gz_args(gy, w2, f_in, c2in, c2out, tile=None, pair=None):
+    """The arguments of ``csrc/conv_block_bwd.cu:enc_bwd_gz`` but the
+    stream, its output g_z and the packed weights: the taps reversed (jf' =
+    4 - jf, jt' = 1 - jt), input and output swapped; bf16 packed for row
+    pairs where ``block_pair`` says so (or ``pair``) and for the tile
+    ``block_tile`` picks (or ``tile``) over the c2in output channels."""
+    bf16 = gy.dtype == torch.bfloat16
+    pair = bf16 and (block_pair(c2in) if pair is None else pair)
+    bm, nb = (tile or block_tile(2 * c2in if pair else c2in)) if bf16 else (0, 0)
+    flipped = w2.flip(0, 1).transpose(2, 3)
+    w, kp = (_pack_mma_weights(flipped, bm, gy.dtype, pair) if bf16 else
+             _pack_weights(flipped, gy.dtype))
+    batch, _, n_time = gy.shape
+    gz = torch.empty((batch, f_in * c2in, n_time), dtype=gy.dtype, device=gy.device)
+    args = [int(bf16), gy.data_ptr(), w.data_ptr(), c2out, kp, gz.data_ptr(), batch, f_in, c2in,
+            n_time, bm, nb, int(pair)]
+    return args, gz, (w,)
 
 
 def enc_bwd_dw(z: torch.Tensor, gy: torch.Tensor, *, f_in: int, c2in: int,

@@ -3,10 +3,11 @@
 // Shared by conv_block.cu (encoder block) and deconv_block.cu (decoder
 // block); each source instantiates only its own variant. What the two
 // compute, and what bounds them, is written at the top of each source.
-// launch sends the bf16 decoder block and the bf16 decoder input gradient
-// to block_mma.cuh's mma_kernel (the same sums with weight reuse, 16-byte
-// staging and a pipelined ring); the encoder block, its input gradient and
-// every f32 variant run block_kernel below, this file's first design.
+// launch sends every bf16 variant (the encoder and decoder blocks and
+// their input gradients) to block_mma.cuh's mma_kernel (the same sums with
+// weight reuse, 16-byte staging and a pipelined ring); the four f32
+// variants, which the small f32 models use, run block_kernel below, this
+// file's first design.
 // The input gradients of the two blocks are the same sums with the roles
 // of the indexings swapped (conv_block_bwd.cu, deconv_block_bwd.cu): they
 // run this kernel as its kGrad variant: the input staged as it is (no
@@ -86,8 +87,8 @@ struct Params {
   int f_in, f_out, c2out, n_time, m_tiles;
   void* y2;           // kGrad: null, or with y a split of the output channels (out_row)
   int c2a;            // with y2: the channels (r and i) that go to y
-  int bm, nb;         // bf16 rows 4 and 7: the tile of block_mma.cuh the caller packed for
-  int pair;           // bf16 decoder block: output row pairs a block (block_mma.cuh)
+  int bm, nb;         // bf16: the tile of block_mma.cuh the caller packed the weights for
+  int pair;           // bf16: output row pairs a block (block_mma.cuh: kPair)
 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -387,9 +388,9 @@ int launch(Params p, int batch, cudaStream_t stream) {
     if (p.reg[i].c2 <= 0 || p.reg[i].c2 % 2 != 0 || p.reg[i].kp % BK != 0 ||
         p.reg[i].kp < p.reg[i].c2)
       return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (sizeof(T) == 2 && kDecoder != kGrad) {
-    // the decoder block (row 4) and the decoder's input gradient (row 7):
-    // block_mma.cuh, on weights packed pair-interleaved for the tile (bm, nb)
+  if constexpr (sizeof(T) == 2) {
+    // bf16, rows 3 to 5 and 7 of PERF.md's table: block_mma.cuh, on weights
+    // packed pair-interleaved for the tile (bm, nb)
     blockmma::Params q{};
     for (int i = 0; i < p.n_reg; ++i) {
       const Region& rg = p.reg[i];
@@ -410,7 +411,7 @@ int launch(Params p, int batch, cudaStream_t stream) {
     q.n_time = p.n_time;
     return blockmma::launch<kDecoder, kGrad>(q, p.bm, p.nb, p.pair != 0, stream);
   } else {
-    // block_kernel: the f32 variants, the encoder block and its input gradient
+    // block_kernel: the f32 variants
     const int bm = p.c2out <= 16 ? 16 : p.c2out <= 32 ? 32 : p.c2out <= 64 ? 64 : 128;
     p.m_tiles = (p.c2out / 2 + bm / 2 - 1) / (bm / 2);
     const long long z = static_cast<long long>(batch) * p.m_tiles;

@@ -9,9 +9,11 @@
 //
 // Z = PReLU(a_diag * X + a_cross * partner(X) + c0) rounded to bf16 (the
 // forward), or X as it is (kGrad, the input gradients). block_gemm.cuh's
-// launch sends the bf16 decoder block (kDecoder, row 4 of PERF.md's table)
-// and the decoder's input gradient (kGrad on the encoder indexing, row 7)
-// here; the kernel is written over both indexings and both kGrad values.
+// launch sends every bf16 variant here, over both indexings and both kGrad
+// values (rows of PERF.md's table): the encoder block (row 3, encoder
+// indexing), the decoder block (row 4, kDecoder), the encoder's input
+// gradient (row 5, kGrad on the decoder indexing) and the decoder's (row 7,
+// kGrad on the encoder indexing).
 //
 // Tiling. A block of 256 threads computes BM output channels x NB column
 // segments of 64 frames: the same frames [t0, t0 + 64) of output row fo for
@@ -25,12 +27,14 @@
 // the small tiles get more frames per warp rather than idle warps. Two
 // blocks an SM (128 registers a thread).
 //
-// Row pairs (kPair, the decoder block only). The two output rows 2r and
-// 2r + 1 read input rows r - 1, r, r + 1 (even: taps 0, 2, 4; odd: 1, 3),
-// so one block computes both as the two halves of its tile, walking the
-// three input rows as its taps (d = 0, 1, 2; the odd row's weights for d =
-// 0 are zero): each input row is staged and activated once for two output
-// rows instead of 2.5 times, 40% fewer stages a row. The host takes it for
+// Row pairs (kPair; not on the encoder indexing with kGrad). One block
+// computes output rows 2r and 2r + 1 as the two halves of its tile,
+// walking the input rows they read as its taps d, each staged and
+// activated once for both. Decoder indexing: rows r - 1 + d, d = 0, 1, 2
+// (even: jf = 2 d; odd: jf = 2 d - 1, none for d = 0), 40% fewer stages a
+// row. Encoder indexing: rows 4 r - 2 + d, d = 0..6 (even: jf = d; odd: jf
+// = d - 2), 30% fewer stages and 40% more products (the halves' weights
+// are zero on the taps the other row alone reads). The host takes it for
 // the small GEMMs, where the stages, not the products, bound the kernel.
 //
 // K order. The block walks its K steps: regions, live taps jf (the input
@@ -74,7 +78,7 @@
 // block, overlapping the staging only in part; on the small tiles the
 // latency of each stage's loads, which the few products there cannot
 // cover. Registers and shared memory per tile: the notes of
-// deconv_block.cu and deconv_block_bwd.cu.
+// conv_block.cu, conv_block_bwd.cu, deconv_block.cu and deconv_block_bwd.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -190,12 +194,12 @@ __device__ __forceinline__ float hi_f32(uint32_t w) { return __uint_as_float(w &
 
 template <bool kDecoder, bool kGrad, bool kPair, class C>
 __global__ void __launch_bounds__(THREADS, MINB) mma_kernel(const Params p) {
-  static_assert(!kPair || (kDecoder && !kGrad), "row pairs: the decoder block only");
+  static_assert(!kPair || kDecoder || !kGrad, "row pairs: not on the encoder indexing's kGrad");
   constexpr int BM = C::BM, NB = C::NB, N = C::N;
   // kPair: the tile's two halves are output rows 2 row and 2 row + 1, whose
-  // taps read input rows row - 1 + d, d = 0, 1, 2 (even: jf = 2 d; odd: jf =
-  // 2 d - 1); otherwise one output row, taps jf = 0..4
-  constexpr int NTAPS = kPair ? 3 : 5;
+  // taps d read input rows row - 1 + d (decoder, d < 3) or 4 row - 2 + d
+  // (encoder, d < 7); otherwise one output row, taps jf = 0..4
+  constexpr int NTAPS = kPair ? (kDecoder ? 3 : 7) : 5;
   constexpr int HROWS = kPair ? BM / 2 : BM;  // tile rows of one output row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -217,7 +221,10 @@ __global__ void __launch_bounds__(THREADS, MINB) mma_kernel(const Params p) {
   // the block's K steps: regions, live taps, k16 steps; taps lists the live
   // taps, three bits each
   auto tap_row = [&](int jf) {  // the input row tap jf reads, or -1
-    if constexpr (kPair) return row - 1 + jf >= 0 && row - 1 + jf < p.f_in ? row - 1 + jf : -1;
+    if constexpr (kPair) {
+      const int fi = (kDecoder ? row - 1 : 4 * row - 2) + jf;
+      return fi >= 0 && fi < p.f_in ? fi : -1;
+    }
     return input_row<kDecoder>(row, jf, p.f_in);
   };
   int taps = 0, n_live = 0;
@@ -608,7 +615,7 @@ int launch_cfg(Params p, cudaStream_t stream) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.n_time + SEG - 1) / SEG, kPair ? p.f_in : p.f_out,
+  const dim3 grid((p.n_time + SEG - 1) / SEG, kPair ? p.f_out / 2 : p.f_out,
                   static_cast<unsigned>(z));
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -625,13 +632,15 @@ int launch_tile(const Params& p, int bm, int nb, cudaStream_t stream) {
 
 // Launches the tile (bm, nb) the caller chose (kernels/conv_block.py:
 // block_tile) and packed the weights for: 128 x 2, 64 x 2, 32 x 4 or 16 x 4
-// (tile rows x 64-frame segments), and for the decoder block with pair,
-// output row pairs (the tile's halves). The caller checked the shapes.
+// (tile rows x 64-frame segments), and with pair output row pairs (the
+// tile's halves; every variant but the decoder's input gradient, row 7).
+// The caller checked the shapes.
 template <bool kDecoder, bool kGrad>
 int launch(const Params& p, int bm, int nb, bool pair, cudaStream_t stream) {
-  if constexpr (kDecoder && !kGrad) {
+  if constexpr (kDecoder || !kGrad) {
     if (pair) {
-      if (p.f_out != 2 * p.f_in) return static_cast<int>(cudaErrorInvalidValue);
+      if (p.f_out % 2 != 0 || (kDecoder && p.f_out != 2 * p.f_in))
+        return static_cast<int>(cudaErrorInvalidValue);
       return launch_tile<kDecoder, kGrad, true>(p, bm, nb, stream);
     }
   }

@@ -13,10 +13,18 @@
 //   (g = 0 at frame T) -> [B, f_in * C2in, T]: a stride-2 transposed conv
 //   over frequency, the causal shift reversed in time. With the taps
 //   reindexed jf' = 4 - jf, jt' = 1 - jt it is exactly the decoder block's
-//   forward indexing, so it runs block_gemm.cuh's implicit GEMM (the
-//   decoder variant) on g as it is (no pointwise, no bias, no stats), with
-//   the wrapper's weights W[4 - jf', 1 - jt'] packed [5, 2, C2in, C2out
-//   padded to 16] (kernels/conv_block.py).
+//   forward indexing, run on g as it is (no pointwise, no bias, no stats,
+//   one output). bf16 runs block_mma.cuh's mma_kernel (the decoder
+//   indexing, kGrad; weights reused across NB batch items, K in k16 steps
+//   of eight interleaved complex pairs of g, 16-byte staging realigned in
+//   registers, two stages with one barrier a stage, cp.async weights,
+//   ldmatrix and mma.sync) on the wrapper's weights W[4 - jf', 1 - jt']
+//   packed for its tile (kernels/conv_block.py: block_tile, block_pair over
+//   the C2in output channels): enc0 to enc3 compute output rows 2r and 2r
+//   + 1 in one block from one staging of g's rows r - 1 .. r + 1 (row
+//   pairs; tiles 16 x 4, 32 x 4, 64 x 2, 128 x 2), enc4 and enc5 one row a
+//   block on 128 x 2; f32 block_gemm.cuh's block_kernel on [5, 2, C2in,
+//   C2out padded to 16].
 // enc_bwd_dw: for the recomputed activated input z [B, f_in * C2in, T]
 //   and g, dW[jf, jt] = sum over (b, fo, t) of z[2 fo + jf - 2, t - 1 + jt]
 //   g[fo, t]^T, as split-K partials [S, 5, 2, C2in, C2out] f32 that the
@@ -35,12 +43,18 @@
 // Rounding, as the JAX kernels: g and the weights in the activation type,
 // f32 accumulation, g_z stored in the activation type, dW in f32.
 //
-// ptxas (sm_90a, this source and its decoder/encoder twin): the weight-
-// gradient kernels' reports are in PERF.md; the bf16 input-gradient
-// variants of block_gemm.cuh, tile heights 16 / 32 / 64 / 128, 71-72 /
-// 72-74 / 79 / 122 registers, no spills; their f32 variants up to 255
-// registers with 40 bytes of spills at height 128 (used only by the small
-// f32 model). chip_smoke.py logs the report of each build.
+// Where the input gradient's time goes (tools/block_phase_probe.py --rows
+// enc_gz, PERF.md section 6): enc3 to enc5 stage about 1.8 to 2.2 TB/s,
+// products and stores 47% of a block; on enc0 to enc2 the epilogue takes
+// 40 to 55%, its global stores 1 to 3% (--variant no-epistore).
+//
+// ptxas (sm_90a): the weight-gradient kernels' reports are in PERF.md; the
+// bf16 input gradient's tiles 16 x 4 / 32 x 4 / 64 x 2 / 128 x 2, 118 / 109
+// / 115 / 126 registers, with row pairs 127 / 124 / 121 / 128 (two blocks
+// an SM), no spills; dynamic shared memory 46.7 / 51.8 / 41.3 / 69.6 KB.
+// The f32 variants of block_kernel up to 255 registers with 40 bytes of
+// spills at height 128 (used only by the small f32 model). chip_smoke.py
+// logs the report of each build.
 
 #include "block_gemm.cuh"
 #include "common.cuh"
@@ -50,7 +64,7 @@ namespace {
 
 template <typename T>
 int run_gz(const void* gy, const void* w, int c2out, int kp, void* gz, int batch, int f_in,
-           int c2in, int n_time, void* stream) {
+           int c2in, int n_time, int bm, int nb, int pair, void* stream) {
   if (f_in % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   blockgemm::Params p{};
   p.reg[0] = {gy, nullptr, w, c2out, kp};
@@ -60,6 +74,9 @@ int run_gz(const void* gy, const void* w, int c2out, int kp, void* gz, int batch
   p.f_out = f_in;     // the rows of g_z
   p.c2out = c2in;
   p.n_time = n_time;
+  p.bm = bm;
+  p.nb = nb;
+  p.pair = pair;
   return blockgemm::launch<T, true, true>(p, batch, static_cast<cudaStream_t>(stream));
 }
 
@@ -84,15 +101,22 @@ int run_dw(const void* z, const void* gy, void* part, int splits, int bm, int bn
 
 }  // namespace
 
-// gy [batch, f_in / 2 * c2out, T] (bf16 if is_bf16, else f32); w [5, 2,
-// c2in, kp] in gy's type (the flipped, transposed weights, zero past
-// c2out); gz [batch, f_in * c2in, T] in gy's type. All contiguous on the
-// current device. Launches on `stream`, returns cudaGetLastError().
+// gy [batch, f_in / 2 * c2out, T] (bf16 if is_bf16, else f32); w in gy's
+// type, the flipped, transposed weights: bf16 [m_tiles, 5, kp / 16, 2, bm,
+// 16] packed for block_mma.cuh's tile (bm, nb) over the c2in output
+// channels, or with pair [m_tiles, 3, kp / 16, 2, bm, 16] (output rows 2r
+// and 2r + 1 a block, taps by row of g), kp = 16 ceil(c2out / 16)
+// (pair-interleaved channels of g), f32 [5, 2, c2in, kp] zero past c2out
+// (bm, nb, pair unused); gz [batch, f_in * c2in, T] in gy's type. All
+// contiguous on the current device. Launches on `stream`, returns
+// cudaGetLastError().
 extern "C" int enc_bwd_gz(int is_bf16, const void* gy, const void* w, int c2out, int kp,
-                          void* gz, int batch, int f_in, int c2in, int n_time, void* stream) {
+                          void* gz, int batch, int f_in, int c2in, int n_time, int bm, int nb,
+                          int pair, void* stream) {
   if (is_bf16)
-    return run_gz<__nv_bfloat16>(gy, w, c2out, kp, gz, batch, f_in, c2in, n_time, stream);
-  return run_gz<float>(gy, w, c2out, kp, gz, batch, f_in, c2in, n_time, stream);
+    return run_gz<__nv_bfloat16>(gy, w, c2out, kp, gz, batch, f_in, c2in, n_time, bm, nb, pair,
+                                 stream);
+  return run_gz<float>(gy, w, c2out, kp, gz, batch, f_in, c2in, n_time, bm, nb, pair, stream);
 }
 
 // z [batch, f_in * c2in, T] and gy [batch, f_in / 2 * c2out, T] of one type

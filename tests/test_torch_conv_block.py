@@ -194,7 +194,7 @@ def test_wrappers_take_only_cpu_or_cuda_tensors(rng):
     assert pk.fused_conv_block.launches == before  # the plain version launches nothing
 
 
-# -- the bf16 decoder kernels' schedule (csrc/block_mma.cuh), in numpy --------
+# -- the bf16 block kernels' schedule (csrc/block_mma.cuh), in numpy ----------
 
 SEG = 64  # frames of a column segment
 
@@ -228,9 +228,10 @@ def _emulate_mma(regions, f_in, f_out, m, n_time, decoder, grad, tile, bias=None
     stage, stages each segment's 65 frames from t_first (t0, or t0 - 1 for
     the encoder indexing) with the pair's pointwise (or as they are, grad),
     zero outside [0, T), and multiplies both time taps' weight tiles with
-    rows n + jt. With ``pair`` (the decoder block's row pairs) a block is
-    output rows 2 r and 2 r + 1, the tile's halves, and its taps the input
-    rows r - 1 + d. Returns y [B, f_out, m, T] (+ bias)."""
+    rows n + jt. With ``pair`` (row pairs) a block is output rows 2 r and
+    2 r + 1, the tile's halves, and its taps the input rows r - 1 + d
+    (decoder indexing, d < 3) or 4 r - 2 + d (encoder, d < 7). Returns y
+    [B, f_out, m, T] (+ bias)."""
     bm, nb = tile
     hrows = bm // 2 if pair else bm  # tile rows of one output row
     batch = regions[0][0].shape[0]
@@ -244,16 +245,19 @@ def _emulate_mma(regions, f_in, f_out, m, n_time, decoder, grad, tile, bias=None
 
     def tap_row(blk, jf):
         if pair:
-            return blk - 1 + jf if 0 <= blk - 1 + jf < f_in else -1
+            fi = (blk - 1 if decoder else 4 * blk - 2) + jf
+            return fi if 0 <= fi < f_in else -1
         return _input_row(decoder, blk, jf, f_in)
+
+    n_taps = (3 if decoder else 7) if pair else 5
 
     for t0 in range(0, n_time, SEG):
         frames = (t0 if decoder else t0 - 1) + np.arange(SEG + 1)
         inside = (frames >= 0) & (frames < n_time)
         fc = np.clip(frames, 0, n_time - 1)
         n_valid = min(SEG, n_time - t0)
-        for blk in range(f_in if pair else f_out):
-            live = [jf for jf in range(3 if pair else 5) if tap_row(blk, jf) >= 0]
+        for blk in range(f_out // 2 if pair else f_out):
+            live = [jf for jf in range(n_taps) if tap_row(blk, jf) >= 0]
             steps = [(reg, jf, ks) for reg, (*_, w, _c2) in enumerate(regions) for jf in live
                      for ks in range(w.shape[2])]
             for bg in range(-(-batch // nb)):
@@ -337,9 +341,50 @@ def test_mma_schedule_matches_plain_decoder_block(rng, c2x, c2s, c2out, batch, f
     assert (np.abs(s - s_want) <= 1e-5 * np.abs(s_want) + 1e-5 * scale).all()
 
 
-# (row, block) -> (GEMM output channels, tile) at DCCRN's decoder: row 4 (the
-# forward) has c2out rows (twice that for its row pairs, dec2 to dec5), row 7
-# (its input gradient) c2x + c2s
+# DCCRN's encoder widths (c2in -> c2out, enc0 to enc5), then ragged shapes: a
+# partial batch group, frame tiles of 21, 67 and 65 frames (T < one tile, one
+# frame past a tile), pairs not a multiple of 8 (c2in 6, 20), output widths
+# not a multiple of 16 (10, 34) and two row tiles with the last one ragged
+ENC_MMA_SHAPES = [  # c2in, c2out, batch, f_in, n_time, tile (None: block_tile's)
+    (2, 16, 3, 16, 70, None), (16, 32, 2, 8, 67, None), (32, 64, 1, 8, 21, None),
+    (64, 128, 2, 4, 65, None), (128, 256, 1, 4, 33, None), (256, 256, 2, 4, 40, None),
+    (6, 10, 5, 8, 67, None), (20, 34, 3, 4, 65, (32, 4)), (2, 2, 2, 4, 70, (16, 4)),
+]
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("c2in,c2out,batch,f_in,n_time,tile", ENC_MMA_SHAPES)
+def test_mma_schedule_matches_plain_encoder_block(rng, c2in, c2out, batch, f_in, n_time, tile,
+                                                  with_stats, pair):
+    """The encoder block's bf16 kernel walked in numpy (the encoder indexing:
+    taps jf read input rows 2 fo + jf - 2, frames from t0 - 1, where frame -1
+    stages as zero after the pointwise, the causal pad) with the wrapper's
+    packing (pair-interleaved K: enc0's one pair fills one of a k16 step's
+    eight slots, the rest zero; one output row a block, or row pairs over
+    seven taps), against the plain version with and without stats."""
+    x, w2, b2, coef, alpha = _enc_inputs(rng, c2in, c2out, batch=batch, f_in=f_in,
+                                         n_time=n_time)
+    tile = tile or pk.block_tile(2 * c2out if pair else c2out)
+    packed, kp = pk._pack_mma_weights(torch.from_numpy(w2), tile[0], torch.float32, pair,
+                                      decoder=False)
+    assert kp == 16 * -(-c2in // 16) and packed.shape[1:3] == (7 if pair else 5, kp // 16)
+    regions = [(x.astype(np.float64), coef, alpha, packed.numpy(), c2in)]
+    y = _emulate_mma(regions, f_in, f_in // 2, c2out, n_time, False, False, tile, b2, pair)
+    got = pk.fused_conv_block(*_t((x, w2, b2)), *_t(coef), torch.tensor([alpha]), f_in=f_in,
+                              c2in=c2in, c2out=c2out, with_stats=with_stats)
+    want = got[0] if with_stats else got
+    np.testing.assert_allclose(y.reshape(want.shape), want.numpy(), rtol=1e-5, atol=1e-5)
+    if with_stats:
+        s, s_want = _stats(y), got[1].numpy()
+        scale = np.abs(s_want).max(axis=(0, 1), keepdims=True)
+        assert (np.abs(s - s_want) <= 1e-5 * np.abs(s_want) + 1e-5 * scale).all()
+
+
+# (row, block) -> (GEMM output channels, tile) at DCCRN's twelve blocks: row 4
+# (the decoder forward) has c2out rows (twice that for its row pairs, dec2 to
+# dec5), row 7 (its input gradient) c2x + c2s, row 3 (the encoder forward)
+# c2out, row 5 (its input gradient) c2in
 MMA_TILES = {
     ("fwd", "dec0"): (256, (128, 2)), ("fwd", "dec1"): (128, (128, 2)),
     ("fwd", "dec2"): (64, (128, 2)), ("fwd", "dec3"): (32, (64, 2)),
@@ -347,19 +392,29 @@ MMA_TILES = {
     ("gz", "dec0"): (512, (128, 2)), ("gz", "dec1"): (512, (128, 2)),
     ("gz", "dec2"): (256, (128, 2)), ("gz", "dec3"): (128, (128, 2)),
     ("gz", "dec4"): (64, (64, 2)), ("gz", "dec5"): (32, (32, 4)),
+    ("enc_fwd", "enc0"): (16, (32, 4)), ("enc_fwd", "enc1"): (32, (64, 2)),
+    ("enc_fwd", "enc2"): (64, (128, 2)), ("enc_fwd", "enc3"): (128, (128, 2)),
+    ("enc_fwd", "enc4"): (256, (128, 2)), ("enc_fwd", "enc5"): (256, (128, 2)),
+    ("enc_gz", "enc0"): (2, (16, 4)), ("enc_gz", "enc1"): (16, (32, 4)),
+    ("enc_gz", "enc2"): (32, (64, 2)), ("enc_gz", "enc3"): (64, (128, 2)),
+    ("enc_gz", "enc4"): (128, (128, 2)), ("enc_gz", "enc5"): (256, (128, 2)),
 }
+PAIRED = {("fwd", "dec2"), ("fwd", "dec3"), ("fwd", "dec4"), ("fwd", "dec5"),
+          ("enc_fwd", "enc0"), ("enc_fwd", "enc1"), ("enc_fwd", "enc2"),
+          ("enc_gz", "enc0"), ("enc_gz", "enc1"), ("enc_gz", "enc2"), ("enc_gz", "enc3")}
 
 
 @pytest.mark.parametrize("row,block", sorted(MMA_TILES))
 def test_block_tile_rule_at_dccrn(row, block):
-    """The tile the wrappers pick at the twelve (row, block) launches of
-    DCCRN's decoder: every staged weight step serves 128 or 256 frames, the
-    small GEMMs keep all eight warps busy on 32 frames each, and the grid's
-    batch groups fit at bench.py's and serving's batches."""
+    """The tile and row pairs the wrappers pick at the twenty-four (row,
+    block) launches of DCCRN's decoder and encoder: every staged weight step
+    serves 128 or 256 frames, the small GEMMs keep all eight warps busy on
+    32 frames each or take row pairs, and the grid's batch groups fit at
+    bench.py's and serving's batches."""
     m, tile = MMA_TILES[(row, block)]
-    pair = row == "fwd" and pk.block_pair(m)
+    pair = row != "gz" and pk.block_pair(m)  # row 7 takes no pairs
     assert pk.block_tile(2 * m if pair else m) == tile
-    assert pair == (row == "fwd" and block in ("dec2", "dec3", "dec4", "dec5"))
+    assert pair == ((row, block) in PAIRED)
     bm, nb = tile
     assert bm >= min(m, 16) and (bm // 2) * -(-(m // 2) // (bm // 2)) >= m // 2
     for batch in (128, 192):
@@ -369,18 +424,19 @@ def test_block_tile_rule_at_dccrn(row, block):
 def test_pack_mma_weights_layout(rng):
     """Tile row r of tile t is output channel t * bm/2 + r (r < bm/2) or its
     imaginary partner; slot 2p + h of k16 step s is input channel h * K/2 +
-    8 s + p; zero past both."""
-    k, m, bm = 20, 6, 16  # K/2 = 10 pairs: two k16 steps, the second ragged
-    w = torch.from_numpy(rng.standard_normal((5, 2, k, m)).astype(np.float32))
-    packed, kp = pk._pack_mma_weights(w, bm, torch.float32)
-    assert packed.shape == (1, 5, 2, 2, bm, 16) and kp == 32
-    c, half = k // 2, m // 2
-    for jf, s, jt, r, slot in np.ndindex(5, 2, 2, bm, 16):
-        co = _out_channel(r, 0, half, bm)
-        p, h = divmod(slot, 2)
-        ci = 8 * s + p
-        want = 0.0 if co < 0 or ci >= c else float(w[jf, jt, h * c + ci, co])
-        assert float(packed[0, jf, s, jt, r, slot]) == want
+    8 s + p; zero past both. K = 20: 10 pairs, two k16 steps, the second
+    ragged; K = 2 (enc0's input): one pair in slots 0 and 1 of one step."""
+    for k, m, bm, nks in ((20, 6, 16, 2), (2, 16, 16, 1)):
+        w = torch.from_numpy(rng.standard_normal((5, 2, k, m)).astype(np.float32))
+        packed, kp = pk._pack_mma_weights(w, bm, torch.float32)
+        assert packed.shape == (1, 5, nks, 2, bm, 16) and kp == 16 * nks
+        c, half = k // 2, m // 2
+        for jf, s, jt, r, slot in np.ndindex(5, nks, 2, bm, 16):
+            co = _out_channel(r, 0, half, bm)
+            p, h = divmod(slot, 2)
+            ci = 8 * s + p
+            want = 0.0 if co < 0 or ci >= c else float(w[jf, jt, h * c + ci, co])
+            assert float(packed[0, jf, s, jt, r, slot]) == want
 
 
 # -- the staging of one unit (block_mma.cuh: load_unit, store_unit), mirrored --

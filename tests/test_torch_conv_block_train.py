@@ -434,3 +434,38 @@ def test_mma_schedule_matches_plain_decoder_input_gradient(rng, c2x, c2s, c2out,
     want = pk.dec_bwd_gz(torch.from_numpy(gy), w2, f_in=f_in, c2x=c2x, c2s=c2s, c2out=c2out)
     for got, ref in zip(_out_row_split(joined, c2x), want):
         np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("c2in,c2out,batch,f_in,n_time,tile", [
+    (2, 16, 3, 16, 70, None),     # enc0: two output channels (one pair), ragged batch group
+    (16, 32, 2, 8, 67, None),     # enc1
+    (32, 64, 1, 8, 21, None),     # enc2, B 1, T < one frame tile
+    (64, 128, 2, 4, 65, None),    # enc3: the 65th frame in a new tile
+    (128, 256, 1, 4, 33, None),   # enc4
+    (256, 256, 2, 2, 40, None),   # enc5
+    (6, 10, 5, 8, 67, None),      # g of 5 pairs, 3 output pairs: ragged K, M and batch group
+    (34, 20, 3, 4, 70, (32, 4)),  # 17 output pairs: two row tiles, the last ragged; g's 10
+    #                               pairs: two k16 steps, the second ragged
+    (20, 36, 2, 4, 130, (16, 4)),  # g's 18 pairs: three k16 steps a tap; frame tiles 64, 64, 2
+])
+def test_mma_schedule_matches_plain_encoder_input_gradient(rng, c2in, c2out, batch, f_in,
+                                                           n_time, tile, pair):
+    """enc_bwd_gz's bf16 kernel walked in numpy (test_torch_conv_block.py:
+    _emulate_mma, the decoder indexing on g as it is: taps with fo + jf even,
+    frames from t0, frame T zero; one output row a block, or row pairs over
+    g's rows r - 1 .. r + 1) with the wrapper's packing of the flipped,
+    transposed weights over the c2in output channels, against the plain
+    version. The weights give g_z of unit variance (as the card tests'), so
+    the plain version's f32 sums of up to 2560 terms stay within 1e-5."""
+    from test_torch_conv_block import _emulate_mma
+    gy = _normal(rng, (batch, f_in // 2 * c2out, n_time))
+    w2 = torch.from_numpy(_normal(rng, (5, 2, c2in, c2out), (10 * c2out) ** -0.5))
+    tile = tile or pk.block_tile(2 * c2in if pair else c2in)
+    packed, kp = pk._pack_mma_weights(w2.flip(0, 1).transpose(2, 3), tile[0], torch.float32,
+                                      pair)
+    assert kp == 16 * -(-c2out // 16) and packed.shape[1:3] == (3 if pair else 5, kp // 16)
+    gz = _emulate_mma([(gy.astype(np.float64), None, None, packed.numpy(), c2out)], f_in // 2,
+                      f_in, c2in, n_time, True, True, tile, pair=pair)
+    want = pk.enc_bwd_gz(torch.from_numpy(gy), w2, f_in=f_in, c2in=c2in, c2out=c2out)
+    np.testing.assert_allclose(gz.reshape(want.shape), want.numpy(), rtol=1e-5, atol=1e-5)

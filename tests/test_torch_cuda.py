@@ -371,21 +371,90 @@ def test_decoder_mma_kernels_take_every_tile(card, tile, pair):
     _assert_gz_close(gzs, want_s, torch.bfloat16)
 
 
+# the encoder blocks of configs/dccrn_vbd.yaml (f_in, c2in, c2out) at T = 643,
+# then ragged shapes: T < one frame tile with B 1, pairs not a multiple of 8
+# with a ragged batch group, two row tiles with the last one ragged and g of
+# two k16 steps, an output width not a multiple of 16, an odd number of
+# output rows (the forward takes no row pairs there)
+ENC_MMA_SHAPES = [(2, 256, 2, 16, 643), (2, 128, 16, 32, 643), (2, 64, 32, 64, 643),
+                  (1, 32, 64, 128, 643), (1, 16, 128, 256, 643), (3, 8, 256, 256, 643),
+                  (1, 8, 16, 32, 21), (5, 8, 6, 10, 70), (3, 4, 34, 20, 67),
+                  (2, 16, 2, 2, 130), (2, 6, 16, 32, 70)]
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,f_in,c2in,c2out,n_time", ENC_MMA_SHAPES)
+def test_encoder_block_mma_kernel_matches_plain(card, with_stats, dtype, batch, f_in, c2in,
+                                                c2out, n_time):
+    """Row 3: bf16 runs block_mma.cuh's kernel, f32 block_gemm.cuh's."""
+    (x,), w2, b2, (coef,), (alpha,) = _block_inputs(16, card, dtype, batch, f_in, (c2in,),
+                                                    c2out, n_time)
+    shapes = dict(f_in=f_in, c2in=c2in, c2out=c2out, with_stats=with_stats)
+    before = fused_conv_block.launches
+    got = fused_conv_block(x, w2, b2, *coef, alpha, **shapes)
+    want = fused_conv_block_plain(x, w2, b2, *coef, alpha, **shapes)
+    torch.cuda.synchronize()
+    assert fused_conv_block.launches == before + 1
+    _assert_block_close(got, want, with_stats, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,f_in,c2in,c2out,n_time", ENC_MMA_SHAPES)
+def test_encoder_input_gradient_mma_kernel_matches_plain(card, dtype, batch, f_in, c2in, c2out,
+                                                         n_time):
+    """Row 5: bf16 runs block_mma.cuh's kernel, f32 block_gemm.cuh's."""
+    rng = np.random.default_rng(17)
+    gy = torch.from_numpy(rng.standard_normal((batch, f_in // 2 * c2out, n_time),
+                                              dtype=np.float32)).to(card, dtype)
+    w2 = _randn((5, 2, c2in, c2out), 18, card) / np.sqrt(10 * c2out)
+    shapes = dict(f_in=f_in, c2in=c2in, c2out=c2out)
+    before = cb.enc_bwd_gz.launches
+    gz = cb.enc_bwd_gz(gy, w2, **shapes)
+    torch.cuda.synchronize()
+    assert cb.enc_bwd_gz.launches == before + 1
+    _assert_gz_close(gz, cb.enc_bwd_gz_plain(gy, w2, **shapes), dtype)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("c2in,c2out", [(2, 16), (32, 64)])  # enc0's and enc2's widths
+@pytest.mark.parametrize("tile", [(128, 2), (64, 2), (32, 4), (16, 4)])
+def test_encoder_mma_kernels_take_every_tile(card, tile, c2in, c2out, pair):
+    """Both bf16 encoder kernels with each tile of block_mma.cuh:launch, one
+    output row a block or row pairs, at enc0's and enc2's widths (B 5: a
+    ragged batch group), against the plain versions."""
+    batch, f_in, n_time = 5, 16, 130
+    (x,), w2, b2, (coef,), (alpha,) = _block_inputs(19, card, torch.bfloat16, batch, f_in,
+                                                    (c2in,), c2out, n_time)
+    args, outs, _keep = cb._conv_block_args(x, w2, b2, *coef, alpha, f_in, c2in, c2out, True,
+                                            tile, pair)
+    cb._launch("conv_block", args, x)
+    want = fused_conv_block_plain(x, w2, b2, *coef, alpha, f_in=f_in, c2in=c2in, c2out=c2out,
+                                  with_stats=True)
+    torch.cuda.synchronize()
+    _assert_block_close(outs, want, True, torch.bfloat16)
+    gy = _randn((batch, f_in // 2 * c2out, n_time), 20, card).bfloat16()
+    args, gz, _keep = cb._enc_bwd_gz_args(gy, w2, f_in, c2in, c2out, tile, pair)
+    cb._launch("enc_bwd_gz", args, gy)
+    want = cb.enc_bwd_gz_plain(gy, w2, f_in=f_in, c2in=c2in, c2out=c2out)
+    torch.cuda.synchronize()
+    _assert_gz_close(gz, want, torch.bfloat16)
+
+
 def test_encoder_kernels_keep_block_kernel(card):
-    """Rows 3 and 5 (the encoder block and its input gradient) still run
-    block_gemm.cuh's block_kernel in bf16; only the decoder's rows 4 and 7
-    run block_mma.cuh's mma_kernel in bf16 (the ptxas report of each build
-    names the kernels it compiled)."""
+    """Rows 3 and 5 (the encoder block and its input gradient) keep
+    block_gemm.cuh's block_kernel for f32 only: every bf16 variant of the
+    four block libraries, the encoder's as the decoder's, is block_mma.cuh's
+    mma_kernel (the ptxas report of each build names the kernels it
+    compiled)."""
     from speech_enhancement_torch.kernels import _build
-    _build.build(["conv_block", "conv_block_bwd", "deconv_block", "deconv_block_bwd"])
-    logs = {name: _build.build_log(name) for name in ("conv_block", "conv_block_bwd",
-                                                       "deconv_block", "deconv_block_bwd")}
+    names = ("conv_block", "conv_block_bwd", "deconv_block", "deconv_block_bwd")
+    _build.build(names)
     bf16_block, mma = "block_kernelI13__nv_bfloat16", "8blockmma10mma_kernel"
-    for name in ("conv_block", "conv_block_bwd"):
-        assert bf16_block in logs[name] and mma not in logs[name]
-    for name in ("deconv_block", "deconv_block_bwd"):
-        assert mma in logs[name] and bf16_block not in logs[name]
-        assert "block_kernelIf" in logs[name]  # the f32 variants
+    for name in names:
+        log = _build.build_log(name)
+        assert mma in log and bf16_block not in log
+        assert "block_kernelIf" in log  # the f32 variants
 
 
 def _leaf_close(got, want, rel=2e-3):

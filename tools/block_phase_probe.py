@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the decoder block's bf16 kernels goes, on one GPU.
+"""Where the time of the fused blocks' bf16 kernels goes, on one GPU.
 
-The kernels are ``fused_deconv_block`` (``deconv_block.cu``) and its input
-gradient ``dec_bwd_gz`` (``deconv_block_bwd.cu``), both instantiations of
-the implicit GEMM in ``block_gemm.cuh`` (``--design before``: the first
-design, ``block_kernel``) or ``block_mma.cuh`` (``--design after``:
+The kernels (``--rows``) are the decoder block ``fused_deconv_block``
+(``fwd``, row 4 of PERF.md's table, ``deconv_block.cu``) and its input
+gradient ``dec_bwd_gz`` (``gz``, row 7, ``deconv_block_bwd.cu``), the
+encoder block ``fused_conv_block`` (``enc_fwd``, row 3, ``conv_block.cu``)
+and its input gradient ``enc_bwd_gz`` (``enc_gz``, row 5,
+``conv_block_bwd.cu``), all instantiations of the implicit GEMM in
+``block_gemm.cuh`` (``--design before``: the first design,
+``block_kernel``) or ``block_mma.cuh`` (``--design after``:
 ``mma_kernel``). This script copies a kernel source directory, inserts
 ``clock64`` stamps at fixed places of the kernel and compiles the copy into
 ``kernels/build/probe/``; the sources themselves are not changed. Thread 0
@@ -25,18 +29,23 @@ Designs:
   products (32-bit fragment loads and mma.sync for both time taps), barrier
   2; then the epilogue (f32 tile through shared memory, stores, stats).
   Pass the directory of that source with ``--csrc`` once the bf16 path has
-  moved on (``git archive 66455ec speech_enhancement_torch/kernels/csrc``).
+  moved on (rows 4 and 7: ``git archive 66455ec
+  speech_enhancement_torch/kernels/csrc``; rows 3 and 5: ``git archive
+  4750f43 ...``).
 * ``after``: ``mma_kernel``, stamped per stage: issue (the next stage's
   weight copies and activation loads), products and stores (ldmatrix and
   mma.sync on this stage, the loaded activations realigned, activated and
   stored into the other stage between the k16 steps), barrier; then the
   epilogue. ``--tile ROW:BLOCK=BMxNB`` launches a block with another tile,
-  ``--pair on|off`` the forward with or without row-pair blocks, ``--sweep``
-  every tile (and, for the forward, both).
+  ``--pair on|off`` the forward rows and row 5 with or without row-pair
+  blocks, ``--sweep`` every tile (and, for those rows, both).
+
+``--stats off`` launches the forward rows without the stats epilogue.
 
 Usage (on a machine with an NVIDIA GPU and nvcc)::
 
     python3 tools/block_phase_probe.py [--design after] [--shapes dec0,dec2]
+    python3 tools/block_phase_probe.py --rows enc_fwd,enc_gz --shapes enc1,enc5
     python3 tools/block_phase_probe.py --design before --csrc DIR
 """
 
@@ -58,12 +67,21 @@ from speech_enhancement_torch.kernels import _build  # noqa: E402
 from speech_enhancement_torch.kernels import conv_block as cb  # noqa: E402
 
 T = 643
-BATCH = {"fwd": 192, "gz": 128}  # one request's windows; bench.py's train batch
-# (name, f_in, (c2x, c2s), c2out): the decoder blocks of configs/dccrn_vbd.yaml
+# one request's windows (the forwards); bench.py's train batch (the input gradients)
+BATCH = {"fwd": 192, "gz": 128, "enc_fwd": 192, "enc_gz": 128}
+# row -> (table row, C library, C entry point, the blocks' name prefix)
+ROWS = {"fwd": ("fused_deconv_block (row 4)", "deconv_block", "deconv_block", "dec"),
+        "gz": ("dec_bwd_gz (row 7)", "deconv_block_bwd", "dec_bwd_gz", "dec"),
+        "enc_fwd": ("fused_conv_block (row 3)", "conv_block", "conv_block", "enc"),
+        "enc_gz": ("enc_bwd_gz (row 5)", "conv_block_bwd", "enc_bwd_gz", "enc")}
+# (name, f_in, input widths, c2out): the decoder blocks of configs/dccrn_vbd.yaml
+# (trunk and skip), then its encoder blocks
 SHAPES = [("dec0", 4, (256, 256), 256), ("dec1", 8, (256, 256), 128),
           ("dec2", 16, (128, 128), 64), ("dec3", 32, (64, 64), 32), ("dec4", 64, (32, 32), 16),
-          ("dec5", 128, (16, 16), 2)]
-DEFAULT_SHAPES = "dec0,dec2,dec4,dec5"
+          ("dec5", 128, (16, 16), 2), ("enc0", 256, (2,), 16), ("enc1", 128, (16,), 32),
+          ("enc2", 64, (32,), 64), ("enc3", 32, (64,), 128), ("enc4", 16, (128,), 256),
+          ("enc5", 8, (256,), 256)]
+DEFAULT_SHAPES = "dec0,dec2,dec4,dec5,enc1,enc3,enc5"
 PHASES = {"before": ["stage Z", "stage W", "barrier 1", "products", "barrier 2", "epilogue"],
           "after": ["issue", "products and stores", "barrier", "epilogue"]}
 
@@ -193,13 +211,13 @@ VARIANTS = {
 }
 
 
-def build(csrc: Path, design: str, stamped: bool, variant: str = "none"):
+def build(csrc: Path, design: str, stamped: bool, names, variant: str = "none"):
+    """Stamped (or bare) copies of the C libraries ``names`` (of ROWS)."""
     tag = f"{design}-{variant}-{'stamped' if stamped else 'bare'}"
     out = _build.BUILD / "probe" / "block" / tag
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    for src in list(csrc.glob("*.cuh")) + [csrc / "deconv_block.cu",
-                                           csrc / "deconv_block_bwd.cu"]:
+    for src in list(csrc.glob("*.cuh")) + [csrc / f"{name}.cu" for name in names]:
         shutil.copy(src, out / src.name)
     header, ns = (("block_gemm.cuh", "blockgemm") if design == "before" else
                   ("block_mma.cuh", "blockmma"))
@@ -208,7 +226,7 @@ def build(csrc: Path, design: str, stamped: bool, variant: str = "none"):
         text = _stamp_before(text) if design == "before" else _stamp_after(text)
     (out / header).write_text(text)
     libs, procs = {}, {}
-    for name in ("deconv_block", "deconv_block_bwd"):
+    for name in names:
         src = out / f"{name}.cu"
         if stamped:
             src.write_text(src.read_text() + ENTRIES.replace("NS", ns))
@@ -246,17 +264,34 @@ def live_taps(decoder: bool, f_in: int, f_out: int):
     return pairs
 
 
+def gemm(kind: str, f_in, widths, c2out):
+    """The implicit GEMM a row launches for a block: (decoder indexing, its
+    input rows, its output rows, M output channels, K regions of channels).
+    The input gradients run the other block's forward indexing on g."""
+    dec = ROWS[kind][3] == "dec"
+    f_block = 2 * f_in if dec else f_in // 2  # the block's output rows
+    if kind in ("fwd", "enc_fwd"):
+        return dec, f_in, f_block, c2out, tuple(widths)
+    return not dec, f_block, f_in, sum(widths), (c2out,)
+
+
+PAIRED = ("fwd", "enc_fwd", "enc_gz")  # the rows that may take row-pair blocks
+
+
+def paired(kind, m, pair=None):
+    """Whether the wrappers take row pairs for a GEMM of m output channels
+    (or ``pair``, where the row takes them at all)."""
+    if kind not in PAIRED:
+        return False
+    return cb.block_pair(m) if pair is None else pair
+
+
 def reckon(design: str, kind: str, f_in, widths, c2out, tile=None, pair=None):
     """(weight bytes, activation bytes) all blocks stage into shared memory,
     and the bytes of the inputs and output once."""
     batch = BATCH[kind]
-    fwd = kind == "fwd"
-    f_out = 2 * f_in if fwd else f_in
-    # the GEMM: M outputs per row, K regions of channels, rows of the input
-    m = c2out if fwd else sum(widths)
-    regions = widths if fwd else (c2out,)
-    rows_in = f_in if fwd else 2 * f_in
-    live = live_taps(fwd, rows_in, f_out)
+    decoder, rows_in, f_out, m, regions = gemm(kind, f_in, widths, c2out)
+    live = live_taps(decoder, rows_in, f_out)
     frame_tiles = -(-T // 64)
     if design == "before":
         bm = 16 if m <= 16 else 32 if m <= 32 else 64 if m <= 64 else 128
@@ -267,16 +302,18 @@ def reckon(design: str, kind: str, f_in, widths, c2out, tile=None, pair=None):
         # partner too: twice these bytes in loads)
         z = blocks_per_row * live * steps * 65 * 16 * 2
     else:
-        pair = fwd and (cb.block_pair(c2out) if pair is None else pair)
+        pair = paired(kind, m, pair)
         bm, nb = tile or cb.block_tile(2 * m if pair else m)
         channels = bm // 4 if pair else bm // 2  # complex output channels a tile
         blocks_per_row = frame_tiles * -(-batch // nb) * -(-(m // 2) // channels)
-        if pair:  # (row pair, input row) pairs: three input rows a pair, fewer at the edges
-            live = sum(0 <= r - 1 + d < f_in for r in range(f_in) for d in range(3))
+        if pair:  # (row pair, input row) pairs: 3 or 7 input rows a pair, fewer at the edges
+            live = sum(0 <= (r - 1 if decoder else 4 * r - 2) + d < rows_in
+                       for r in range(f_out // 2) for d in range(3 if decoder else 7))
         steps = sum(-(-(c2 // 2) // 8) for c2 in regions)  # k16 steps of 8 pairs a tap
         w = blocks_per_row * live * steps * 2 * bm * 16 * 2
         z = blocks_per_row * live * steps * nb * 65 * 16 * 2
-    once = 2.0 * batch * T * (f_in * sum(widths) + (2 * f_in) * c2out)
+    f_block = 2 * f_in if ROWS[kind][3] == "dec" else f_in // 2
+    once = 2.0 * batch * T * (f_in * sum(widths) + f_block * c2out)
     return w, z, once
 
 
@@ -287,19 +324,43 @@ def _inputs(kind, name, f_in, widths, c2out, dev, gen):
         return torch.randn(*shape, generator=gen, device=dev)
 
     w2 = randn(5, 2, sum(widths), c2out) / float(sum(widths) * 10) ** 0.5
-    if kind == "gz":
-        return {"gy": randn(batch, 2 * f_in * c2out, T).to(torch.bfloat16), "w2": w2}
+    if kind in ("gz", "enc_gz"):
+        f_block = 2 * f_in if kind == "gz" else f_in // 2
+        return {"gy": randn(batch, f_block * c2out, T).to(torch.bfloat16), "w2": w2}
     acts = [randn(batch, f_in * c2, T).to(torch.bfloat16) for c2 in widths]
     coefs = [(1 + 0.1 * randn(c2), 0.1 * randn(c2), 0.1 * randn(c2)) for c2 in widths]
     return {"acts": acts, "w2": w2, "b2": 0.1 * randn(c2out), "coefs": coefs,
             "alphas": [torch.full((1,), 0.25, device=dev) for _ in widths]}
 
 
-def _call_before(libs, kind, f_in, widths, c2out, inp):
+def _call_before(libs, kind, f_in, widths, c2out, inp, stats):
     """The first design's C entry points with its packing (as kernels/
     conv_block.py packed them before the bf16 path moved)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
+    if kind == "enc_gz":
+        gy, w2 = inp["gy"], inp["w2"]
+        w, kp = cb._pack_weights(w2.flip(0, 1).transpose(2, 3), gy.dtype)
+        batch, (c2in,) = gy.shape[0], widths
+        gz = torch.empty(batch, f_in * c2in, T, dtype=gy.dtype, device=gy.device)
+        fn = libs["conv_block_bwd"].enc_bwd_gz
+        fn.argtypes = [i, p, p, i, i, p, i, i, i, i, p]
+        args = [1, gy.data_ptr(), w.data_ptr(), c2out, kp, gz.data_ptr(), batch, f_in, c2in, T,
+                stream]
+        return libs["conv_block_bwd"], fn, args, gz, (w,)
+    if kind == "enc_fwd":
+        (x,), w2, (c2in,) = inp["acts"], inp["w2"], widths
+        w, kp = cb._pack_weights(w2, x.dtype)
+        coef = cb._pack_coeffs(inp["coefs"][0], inp["alphas"][0], x.dtype, x.device)
+        bias = inp["b2"].float().contiguous()
+        batch = x.shape[0]
+        y = torch.empty(batch, f_in // 2 * c2out, T, dtype=x.dtype, device=x.device)
+        st = torch.zeros(batch, f_in // 2 * c2out, 8, device=x.device) if stats else None
+        fn = libs["conv_block"].conv_block
+        fn.argtypes = [i, p, p, p, i, i, p, p, p, i, i, i, i, p]
+        args = [1, x.data_ptr(), coef.data_ptr(), w.data_ptr(), c2in, kp, bias.data_ptr(),
+                y.data_ptr(), st.data_ptr() if stats else None, batch, f_in, c2out, T, stream]
+        return libs["conv_block"], fn, args, (y, st), (w, coef, bias)
     c2x, c2s = widths
     if kind == "gz":
         gy, w2 = inp["gy"], inp["w2"]
@@ -321,48 +382,66 @@ def _call_before(libs, kind, f_in, widths, c2out, inp):
     bias = inp["b2"].float().contiguous()
     batch = x.shape[0]
     y = torch.empty(batch, 2 * f_in * c2out, T, dtype=x.dtype, device=x.device)
-    stats = torch.zeros(batch, 2 * f_in * c2out, 8, device=x.device)
+    st = torch.zeros(batch, 2 * f_in * c2out, 8, device=x.device) if stats else None
     fn = libs["deconv_block"].deconv_block
     fn.argtypes = [i, p, p, p, i, i, p, p, p, i, i, p, p, p, i, i, i, i, p]
     args = [1, x.data_ptr(), cx.data_ptr(), wx.data_ptr(), c2x, kp_x, s.data_ptr(),
             cs.data_ptr(), ws.data_ptr(), c2s, kp_s, bias.data_ptr(), y.data_ptr(),
-            stats.data_ptr(), batch, f_in, c2out, T, stream]
-    return libs["deconv_block"], fn, args, (y, stats), (wx, ws, cx, cs, bias)
+            st.data_ptr() if stats else None, batch, f_in, c2out, T, stream]
+    return libs["deconv_block"], fn, args, (y, st), (wx, ws, cx, cs, bias)
 
 
-def _call_after(libs, kind, f_in, widths, c2out, inp, tile, pair):
+def _call_after(libs, kind, f_in, widths, c2out, inp, tile, pair, stats):
     """The current C entry points with the current packing (kernels/
-    conv_block.py), the tile from block_tile or ``tile``."""
-    name = "dec_bwd_gz" if kind == "gz" else "deconv_block"
-    lib = libs["deconv_block_bwd" if kind == "gz" else "deconv_block"]
+    conv_block.py), the tile from the wrappers' rule or ``tile``."""
+    _, library, name, _ = ROWS[kind]
+    lib = libs[library]
     fn = getattr(lib, name)
     fn.argtypes = cb._ENTRIES[name][1]
     stream = torch.cuda.current_stream().cuda_stream
     if kind == "gz":
         args, outs, keep = cb._dec_bwd_gz_args(inp["gy"], inp["w2"], f_in, *widths, c2out, tile)
+    elif kind == "enc_gz":
+        args, outs, keep = cb._enc_bwd_gz_args(inp["gy"], inp["w2"], f_in, *widths, c2out, tile,
+                                               pair)
+    elif kind == "enc_fwd":
+        args, outs, keep = cb._conv_block_args(
+            *inp["acts"], inp["w2"], inp["b2"], *inp["coefs"][0], inp["alphas"][0], f_in,
+            *widths, c2out, stats, tile, pair)
     else:
         args, outs, keep = cb._deconv_block_args(
             *inp["acts"], inp["w2"], inp["b2"], inp["coefs"][0], inp["alphas"][0],
-            inp["coefs"][1], inp["alphas"][1], f_in, *widths, c2out, True, tile, pair)
+            inp["coefs"][1], inp["alphas"][1], f_in, *widths, c2out, stats, tile, pair)
     return lib, fn, args + [stream], outs, keep
 
 
-def _check(kind, f_in, widths, c2out, inp, outs):
+def _check(kind, f_in, widths, c2out, inp, outs, with_stats):
     """Largest error against the plain version, in units of the bound
     |d| <= 2^-7 |ref| + 1e-3 (chip_smoke.py's BLOCK_RTOL / BLOCK_ATOL); stats
     as a share of each lane's largest magnitude."""
-    shapes = dict(f_in=f_in, c2x=widths[0], c2s=widths[1], c2out=c2out)
+    stats = 0.0
     if kind == "gz":
+        shapes = dict(f_in=f_in, c2x=widths[0], c2s=widths[1], c2out=c2out)
         want = cb.dec_bwd_gz_plain(inp["gy"], inp["w2"], **shapes)
         got = outs
-        stats = 0.0
+    elif kind == "enc_gz":
+        want = (cb.enc_bwd_gz_plain(inp["gy"], inp["w2"], f_in=f_in, c2in=widths[0],
+                                    c2out=c2out),)
+        got = (outs,)
     else:
-        want_y, want_st = cb.fused_deconv_block_plain(
-            *inp["acts"], inp["w2"], inp["b2"], inp["coefs"][0], inp["alphas"][0],
-            inp["coefs"][1], inp["alphas"][1], with_stats=True, **shapes)
+        if kind == "enc_fwd":
+            want_y, want_st = cb.fused_conv_block_plain(
+                *inp["acts"], inp["w2"], inp["b2"], *inp["coefs"][0], inp["alphas"][0],
+                f_in=f_in, c2in=widths[0], c2out=c2out, with_stats=True)
+        else:
+            want_y, want_st = cb.fused_deconv_block_plain(
+                *inp["acts"], inp["w2"], inp["b2"], inp["coefs"][0], inp["alphas"][0],
+                inp["coefs"][1], inp["alphas"][1], f_in=f_in, c2x=widths[0], c2s=widths[1],
+                c2out=c2out, with_stats=True)
         got, want = (outs[0],), (want_y,)
-        scale = want_st.abs().amax(dim=(0, 1), keepdim=True) + 1e-6
-        stats = ((outs[1] - want_st).abs() / scale).max().item()
+        if with_stats:
+            scale = want_st.abs().amax(dim=(0, 1), keepdim=True) + 1e-6
+            stats = ((outs[1] - want_st).abs() / scale).max().item()
     worst = 0.0
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
@@ -373,31 +452,35 @@ def _check(kind, f_in, widths, c2out, inp, outs):
 TILES = [(128, 2), (64, 2), (32, 4), (16, 4)]  # block_mma.cuh: launch
 
 
-def run(libs, design, stamped, dev, shapes, kinds, tiles, sweep=False, pair=None):
+def run(libs, design, stamped, dev, shapes, kinds, tiles, sweep=False, pair=None, stats=True):
     gen = torch.Generator(device=dev).manual_seed(5)
     for kind in kinds:
         for name, f_in, widths, c2out in shapes:
+            if not name.startswith(ROWS[kind][3]):
+                continue
             inp = _inputs(kind, name, f_in, widths, c2out, dev, gen)
-            pairs = (False, True) if sweep and kind == "fwd" else (pair,)
+            pairs = (False, True) if sweep and kind in PAIRED else (pair,)
             for tile in (TILES if sweep else [tiles.get(f"{kind}:{name}")]):
                 for one in pairs:
                     _run_one(libs, design, stamped, kind, name, f_in, widths, c2out, inp, tile,
-                             one)
+                             one, stats)
             del inp
 
 
-def _run_one(libs, design, stamped, kind, name, f_in, widths, c2out, inp, tile, pair):
+def _run_one(libs, design, stamped, kind, name, f_in, widths, c2out, inp, tile, pair, stats):
     """One launch (warm-up, then the read), its error and reckoning, printed."""
+    fwd = kind in ("fwd", "enc_fwd")
+    stats = stats and fwd
     if design == "before":
-        lib, fn, args, outs, keep = _call_before(libs, kind, f_in, widths, c2out, inp)
+        lib, fn, args, outs, keep = _call_before(libs, kind, f_in, widths, c2out, inp, stats)
     else:
         lib, fn, args, outs, keep = _call_after(libs, kind, f_in, widths, c2out, inp,
-                                                tile, pair)
+                                                tile, pair, stats)
     for _ in range(2):  # warm up, then the launch read
         if stamped:
             torch.cuda.synchronize()
             _build.check(lib, lib.probe_zero(), "probe_zero")
-        if kind == "fwd":
+        if stats:
             outs[1].zero_()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -405,18 +488,18 @@ def _run_one(libs, design, stamped, kind, name, f_in, widths, c2out, inp, tile, 
         end.record()
         torch.cuda.synchronize()
     ms = start.elapsed_time(end)
-    err, err_stats = _check(kind, f_in, widths, c2out, inp, outs)
+    err, err_stats = _check(kind, f_in, widths, c2out, inp, outs, stats)
     w, z, once = reckon(design, kind, f_in, widths, c2out, tile, pair)
-    row = "dec_bwd_gz (row 7)" if kind == "gz" else "fused_deconv_block (row 4)"
-    shown = ""
+    row = ROWS[kind][0]
+    shown = "" if stats or not fwd else " no stats"
     if design == "after":
-        paired = kind == "fwd" and (cb.block_pair(c2out) if pair is None else pair)
-        m = c2out if kind == "fwd" else sum(widths)
-        shown = " tile %dx%d" % (tile or cb.block_tile(2 * m if paired else m))
-        shown += " row pairs" if paired else ""
+        m = gemm(kind, f_in, widths, c2out)[3]
+        two = paired(kind, m, pair)
+        shown += " tile %dx%d" % (tile or cb.block_tile(2 * m if two else m))
+        shown += " row pairs" if two else ""
     line = (f"{design} {'stamped' if stamped else 'bare'} {row} {name}{shown} B "
             f"{BATCH[kind]}: {ms:.3f} ms; error {err:.2f} of the bound"
-            + (f", stats {err_stats:.1e} of lane max" if kind == "fwd" else "")
+            + (f", stats {err_stats:.1e} of lane max" if stats else "")
             + f"; staged W {w / 1e9:.2f} GB, Z {z / 1e9:.2f} GB "
             f"({(w + z) / ms / 1e9:.2f} TB/s), in + out once {once / 1e9:.2f} GB")
     if stamped:
@@ -438,13 +521,17 @@ def main() -> None:
                         help="kernel source directory (the first design's for --design before)")
     parser.add_argument("--shapes", default=DEFAULT_SHAPES,
                         help="blocks to run, of " + ", ".join(s[0] for s in SHAPES))
-    parser.add_argument("--rows", default="gz,fwd",
-                        help="gz (row 7, dec_bwd_gz), fwd (row 4, fused_deconv_block)")
+    parser.add_argument("--rows", default="gz,fwd,enc_gz,enc_fwd",
+                        help="gz (row 7, dec_bwd_gz), fwd (row 4, fused_deconv_block), "
+                             "enc_gz (row 5, enc_bwd_gz), enc_fwd (row 3, fused_conv_block)")
     parser.add_argument("--tile", action="append", default=[], metavar="ROW:BLOCK=BMxNB",
                         help="after: launch a block with this tile, e.g. gz:dec0=64x4")
+    parser.add_argument("--stats", choices=("on", "off"), default="on",
+                        help="the forward rows with or without the stats epilogue")
     parser.add_argument("--bare", action="store_true", help="skip the stamped build")
     parser.add_argument("--pair", choices=("rule", "on", "off"), default="rule",
-                        help="after, fwd: row-pair blocks as block_pair says, always, never")
+                        help="after, fwd, enc_fwd, enc_gz: row-pair blocks as the wrappers' "
+                             "rule says, always, never")
     parser.add_argument("--variant", choices=sorted(VARIANTS), default="none",
                         help="after: build block_mma.cuh with this change")
     parser.add_argument("--sweep", action="store_true",
@@ -460,12 +547,13 @@ def main() -> None:
         key, tile = spec.split("=")
         tiles[key] = tuple(int(v) for v in tile.split("x"))
     shapes = [s for s in SHAPES if s[0] in args.shapes.split(",")]
+    kinds = args.rows.split(",")
+    names = sorted({ROWS[kind][1] for kind in kinds})
     dev = torch.device("cuda")
     for stamped in (False,) if args.bare else (False, True):
-        run(build(args.csrc.resolve(), args.design, stamped, args.variant), args.design,
-            stamped, dev,
-            shapes, args.rows.split(","), tiles, args.sweep and not stamped,
-            {"rule": None, "on": True, "off": False}[args.pair])
+        run(build(args.csrc.resolve(), args.design, stamped, names, args.variant), args.design,
+            stamped, dev, shapes, kinds, tiles, args.sweep and not stamped,
+            {"rule": None, "on": True, "off": False}[args.pair], args.stats == "on")
 
 
 if __name__ == "__main__":
