@@ -38,8 +38,11 @@ card against the CPU path, three stereo 10 s requests at the full width of
 each) and three train steps at its operating point (B = 4 x 4 s, two
 speakers, si-sdr with PIT; 32 forward and 32 backward launches each), each
 held against the same weights on flax's attention (``fused_attention =
-False``). Each phase's seconds and the total are logged. It imports
-nothing of JAX.
+False``); the serving split also times the copies around one intra and one
+inter attention layer (the wrapper's ``.contiguous()`` of q, k and v, the
+transposed output), and the build's report gives every attention kernel
+variant's registers and spills. Each phase's seconds and the total are
+logged. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
@@ -58,6 +61,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -924,6 +928,11 @@ def slice_result(tag, model, cfg, requests, times, peak_gib, launches, stages) -
 def log_stages(tag: str, stages: dict) -> None:
     log(f"{tag}: stage ms of one request's model call: "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages["ms"].items()))
+    for kind, row in stages.get("layout_ms", {}).items():
+        log(f"{tag}: {kind} attention layer (B' {row['batch']}, L {row['length']}, width "
+            f"{row['width']} bf16): q, k, v .contiguous() {row['qkv_contiguous_ms']:.3f} ms, "
+            f"kernel {row['kernel_ms']:.3f} ms, output transpose {row['out_transpose_ms']:.3f} "
+            f"ms; the copies {row['copies_per_request_ms']:.2f} ms a request")
     share = stages["device_busy_share"]
     log(f"{tag}: device busy {stages['device_busy_ms']:.2f} ms of the model call "
         f"({'not measured' if share is None else f'{share:.3f}'}); top kernels "
@@ -1326,6 +1335,8 @@ def serve_family(tag, dev, path, requests, want_launches, stage_fn=None,
                       device_busy_ms=stages["device_busy_ms"],
                       device_busy_share=stages["device_busy_share"],
                       top_kernels=stages["top_kernels"])
+        if "layout_ms" in stages:
+            result["layout_ms"] = stages["layout_ms"]
         log_stages(tag, stages)
     return result
 
@@ -1447,6 +1458,27 @@ def crn_reference_phase(dev) -> dict:
 
 
 # -- the attention kernels and Sepformer ---------------------------------------
+
+def attention_registers() -> dict:
+    """Registers and spill bytes of each attention kernel variant, from the
+    ptxas report of the build (``mha_fwd_mma<32>``: the bf16 forward at
+    depth tile 32; ``simt``: the f32 kernels)."""
+    usage, current = {}, None
+    for lib in ("attention_fwd", "attention_bwd"):
+        for line in _build.build_log(lib).splitlines():
+            found = re.search(
+                r"Function properties for \S*?(mha_(?:fwd|bwd)_(?:mma|simt))ILi(\d+)E", line)
+            if found:
+                current = f"{found.group(1)}<{found.group(2)}>"
+                usage[current] = {}
+            elif current and "spill stores" in line:
+                spills = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+                usage[current].update({f"spill_{kind}": int(n) for n, kind in spills})
+            elif current and "Used" in line and "registers" in line:
+                usage[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+                current = None
+    return usage
+
 
 def mha_work(batch, heads, length, depth, itemsize, backward=False):
     """(FLOPs, bytes) of one attention launch: Q K^T and P V (forward, 4 L^2 D
@@ -1623,7 +1655,52 @@ def sepformer_stage_split(model, cfg, mixture, dev) -> dict:
 
     busy_ms, top = device_busy(call)
     return {"windows": n_win, "ms": ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / ms["total"] if busy_ms else None, "top_kernels": top}
+            "device_busy_share": busy_ms / ms["total"] if busy_ms else None, "top_kernels": top,
+            "layout_ms": sepformer_layout_copies(model, mix_w)}
+
+
+def sepformer_layout_copies(model, mix_w) -> dict:
+    """CUDA-event times, in one request's first intra and first inter
+    attention layer, of the copies around the kernel: the wrapper's
+    ``.contiguous()`` of the transposed q, k and v (kernels/attention.py,
+    mha_fwd) and the copy of the transposed output that the out projection
+    reads (models/sepformer.py, MultiheadAttention.forward), beside the
+    kernel; and each times the 16 layers of its kind a request runs."""
+    from speech_enhancement_torch.models.sepformer import _dense
+
+    block = model.masknet.dual_mdl[0]
+    captured = {}
+
+    def capture(kind):
+        def hook(module, args):
+            captured.setdefault(kind, (module, args[0]))
+        return hook
+
+    handles = [getattr(block, f"{kind}_mdl").mdl.layers[0].self_att.register_forward_pre_hook(
+        capture(kind)) for kind in ("intra", "inter")]
+    with torch.inference_mode():
+        model.mask(mix_w)
+        torch.cuda.synchronize()
+        for handle in handles:
+            handle.remove()
+        out = {}
+        for kind, (module, x) in captured.items():
+            att, cd, heads = module.att, module.dtype, module.nhead
+            x = x.to(cd)
+            q, k, v = (_dense(x, w, b, cd) for w, b in zip(att.in_proj_weight.chunk(3),
+                                                            att.in_proj_bias.chunk(3)))
+            packed = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+            o = attn_k.mha_fwd(*packed, heads)
+            row = {"batch": q.shape[0], "length": q.shape[1], "width": q.shape[2],
+                   "qkv_contiguous_ms": cuda_ms(
+                       lambda: [t.transpose(1, 2).contiguous() for t in (q, k, v)], reps=10),
+                   "kernel_ms": cuda_ms(lambda: attn_k.mha_fwd(*packed, heads), reps=10),
+                   "out_transpose_ms": cuda_ms(lambda: o.transpose(1, 2).contiguous(), reps=10)}
+            layers = len(model.masknet.dual_mdl) * len(getattr(block, f"{kind}_mdl").mdl.layers)
+            row["copies_per_request_ms"] = layers * (row["qkv_contiguous_ms"] +
+                                                     row["out_transpose_ms"])
+            out[kind] = row
+    return out
 
 
 def sepformer_slice_phase(dev) -> dict:
@@ -1755,6 +1832,9 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    for name, usage in attention_registers().items():
+        log(f"attention kernel {name}: {usage['registers']} registers, {usage['spill_stores']} "
+            f"bytes of spill stores, {usage['spill_loads']} of spill loads")
 
     kernel_num = load_config(CONFIG).model.kernel_num
     seconds = {"build": build_s}

@@ -15,9 +15,10 @@ for all sequences and heads, counted in ``mha_fwd.launches``) and runs
 :func:`fused_mha_packed_plain` for CPU tensors; ``mha_bwd`` does the same
 with ``csrc/attention_bwd.cu`` and :func:`mha_bwd_plain`. Any other device
 raises, and there is no fallback from a kernel to its plain version: a
-shape whose staging does not fit a block's shared memory (bf16 at D 32
-beyond L 384 in the backward) raises. The kernel sources say what bounds
-them and how they are laid out.
+shape whose staging does not fit a block's shared memory raises
+(:func:`mma_refuses` says which bf16 shapes). The kernel sources say what
+bounds them and how they are laid out; :func:`mma_plan` mirrors the bf16
+kernels' launch plan (``csrc/attention.cuh``: ``fwd_plan``, ``bwd_plan``).
 
 :func:`fused_mha_packed` is the autograd Function :class:`FusedMHA`, which
 saves q, k and v (as the JAX custom VJP does) and whose backward runs
@@ -81,6 +82,57 @@ def mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Te
 
 
 # -- CUDA -------------------------------------------------------------------
+
+# cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100, less the 128 bytes the
+# kernels keep for static shared variables (csrc/attention.cuh: STATIC_SMEM)
+H100_SHARED = 232448 - 128
+
+
+def _raw_bytes(depth: int, length: int) -> int:
+    """Shared bytes a head block takes as a bulk copy lands it."""
+    return -(-2 * depth * length // 16) * 16 + 16
+
+
+def mma_plan(batch_heads: int, depth: int, length: int, backward: bool = False,
+             aligned: bool = True, shared: int = H100_SHARED) -> dict:
+    """The bf16 kernels' launch plan, as ``csrc/attention.cuh``'s
+    ``fwd_plan`` / ``bwd_plan`` make it: the depth tile ``dp``, L padded to
+    16 (``lp``), the pitch of the staged tiles, warps and threads a block,
+    head blocks a block walks (``per_block``), blocks, the bytes of a
+    tensor's landed head block (``raw``, 0 without bulk copies: ``aligned``
+    says whether the tensors start at 16-byte addresses), the dynamic
+    shared bytes and whether a warp takes two 16-row tiles at once
+    (``pair``)."""
+    dp = 16 if depth <= 16 else 32 if depth <= 32 else 64
+    lp = -(-length // 16) * 16
+    pitch, tiles = lp + 8, lp // 16
+    if backward:  # q, k, v, g tiles, the f32 dQ sums [lp][dp + 8], three row statistics
+        raw, warps, per_block = 0, min(tiles, 8), 8
+        smem = 4 * dp * pitch * 2 + lp * (dp + 8) * 4 + 3 * lp * 4
+    else:  # q (then the output), k, v tiles and, with bulk copies, their landed blocks
+        tile_bytes = 3 * dp * pitch * 2
+        copyable = aligned and depth * length % 8 == 0
+        raw = _raw_bytes(depth, length)
+        raw = raw if copyable and tile_bytes + 3 * raw <= shared else 0
+        warps = min(tiles, 8) if raw else (tiles if tiles <= 8 else 4)
+        per_block = 8
+        smem = tile_bytes + 3 * raw
+    # the forward's warps take two query tiles at once where they all have two
+    pair = not backward and dp <= 32 and tiles % 2 == 0 and tiles >= 2 * warps
+    return {"dp": dp, "lp": lp, "pitch": pitch, "warps": warps, "threads": 32 * warps,
+            "per_block": per_block, "blocks": -(-batch_heads // per_block), "raw": raw,
+            "smem": smem, "pair": pair}
+
+
+def mma_refuses(batch_heads: int, depth: int, length: int, backward: bool = False,
+                shared: int = H100_SHARED) -> bool:
+    """Whether the bf16 kernel refuses the shape: an empty one or a depth over
+    64 (cudaErrorInvalidValue), or tiles beyond a block's ``shared`` bytes
+    (cudaErrorInvalidConfiguration)."""
+    if batch_heads <= 0 or depth <= 0 or depth > 64 or length <= 0:
+        return True
+    return mma_plan(batch_heads, depth, length, backward, shared=shared)["smem"] > shared
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {

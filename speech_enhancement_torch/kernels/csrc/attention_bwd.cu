@@ -6,32 +6,43 @@
 // with P recomputed as in the forward (attention_fwd.cu):
 //   dV = Pᵀ g,   dP = g Vᵀ,   dS = P ∘ (dP − rowsum(dP ∘ P)),
 //   dQ = dS K · scale,   dK = dSᵀ Q · scale
-// all in f32, rounded once to the i/o type. rowsum(dP ∘ P) is taken as
-// rowsum(g ∘ O) with O = P V in f32, which is the same sum.
+// all in f32, rounded once to the i/o type.
 //
 // What bounds it on an H100: the bytes. At Sepformer's training batch (B'
 // 264 sequences of L 250, or 1,000 of L 66; H 8, D 32, bf16) a launch reads
 // q, k, v, g and writes dq, dk, dv: 7 x 264 x 256 x 250 x 2 B = 237 MB,
 // 0.07 ms at 3.35 TB/s, against about 2.5 times the forward's operations
-// (0.02 ms at 989 TFLOP/s).
+// (0.02 ms at 989 TFLOP/s); the products issued (L padded to 256, the f32
+// operands P and dS as hi and lo parts) are about 90 GFLOP at L 250.
 //
-// Design: one block per (b, h), eight warps, every operand staged once in
-// shared memory in both orientations the products need ([l][d] for the
-// operands contracted over d, [d][l] for those contracted over l). Phase 1,
-// a warp per query tile of 16 rows: an online-softmax pass over the keys
-// gives the row max, the row sum and O, hence rowsum(g ∘ O) (kept in
-// shared memory with the max and sum); a second pass over the keys
-// rebuilds P and dP chunk by chunk and accumulates dQ in registers. Phase
-// 2, after a barrier, a warp per key tile of 16 rows: it rebuilds Pᵀ and
-// dPᵀ from the stored row statistics, chunk by chunk over the queries,
-// and accumulates dK and dV in registers. A block owns its whole (b, h),
-// so no gradient needs atomics. bf16 runs mma.sync with the f32 operand
-// (P or dS) split into hi and lo parts (attention.cuh); f32 runs one thread
-// per row on full-f32 FMA. Results are stored from the fragments.
+// Design (bf16): a block of up to eight warps walks eight consecutive (b,
+// h) head blocks (attention.cuh: bwd_plan). For each head it asks L2 for
+// the next head's lines and stages q, k, v and g once each into pitched
+// tiles [d][lp + 8] with 16-byte loads realigned in registers; both
+// orientations every product needs come from ldmatrix and ldmatrix.trans
+// of that one copy. Two passes:
+//   1. statistics, a warp per 16-query tile: one online pass over the keys
+//      with S = Q Kᵀ and dP = g Vᵀ gives the row max, 1 / (row sum) and
+//      rowsum(P ∘ dP) (rescaled with the sum), kept in shared memory;
+//   2. gradients, a warp per 16-key tile (rounds of `warps` tiles): Sᵀ = K
+//      Qᵀ and dPᵀ = V gᵀ a 16-query step at a time, Pᵀ and dSᵀ from the
+//      statistics, dV += Pᵀ g and dK += dSᵀ Q in registers, and dQ += dS K
+//      (dS's A fragments by movmatrix from dSᵀ's) added into an f32 [lp][D
+//      + 8] array in shared memory. The warps of a round take their query
+//      steps staggered (warp w at iteration i takes step (kt + i) mod the
+//      steps), with a barrier an iteration, so no two warps add into one dQ
+//      row at once and every dQ sum runs in one fixed order, without
+//      atomics: results do not change from run to run.
+// Products with P or dS take them as bf16 hi and lo parts (attention.cuh).
+// dK and dV go by stmatrix.trans into the warp's own columns of k's and v's
+// tiles, dQ (scaled, rounded) into q's; the block stores the three along l
+// in 16-byte words. f32 runs one block per (b, h), one thread per row on
+// full-f32 FMA, with the element-wise staging.
 //
-// Shared memory (bf16, L 250, D 32): 4 x 256 x 40 + 4 x 32 x 264 elements
-// and 3 x 256 f32 statistics, 152,576 bytes (one block an SM). A shape
-// whose staging exceeds the device's limit is refused with
+// Shared memory (bf16, D 32): 4 x 32 x 264 elements of tiles, 256 x 40 f32
+// of dQ sums and 3 x 256 f32 statistics at L 250, 111,616 bytes (two blocks
+// of 256 threads an SM); 36,288 bytes at L 66 (five warps). A shape whose
+// tiles exceed the device's limit is refused with
 // cudaErrorInvalidConfiguration before launch.
 
 #include <cuda_bf16.h>
@@ -45,195 +56,312 @@ namespace {
 using attn::bf16;
 using attn::CHUNK;
 
-constexpr int MMA_THREADS = 256;
 constexpr int SIMT_THREADS = 128;
 
-template <int DP>
-__host__ __device__ constexpr size_t mma_smem(int length) {
-  const int lp = attn::round_up(length, CHUNK);
-  return sizeof(bf16) * (4 * static_cast<size_t>(lp) * (DP + 8) +
-                         4 * static_cast<size_t>(DP) * (lp + 8)) +
-         sizeof(float) * 3 * static_cast<size_t>(lp);
+// One step of NT n8 key tiles (32 or 16 keys from c0) of a warp's statistics
+// pass over its 16-query tile: S = Q Kᵀ and dP = g Vᵀ, the running row max
+// m of s * scale * log2 e, the sum l of 2^(y - m) and the sum of 2^(y - m)
+// dP, both rescaled when the max grows (this lane's rows g and g + 8).
+template <int DP, int NT, bool MASK>
+__device__ __forceinline__ void stats_step(const uint32_t (*qa)[4], const uint32_t (*ga)[4],
+                                           const bf16* ks, const bf16* vs, int pitch, int c0,
+                                           int length, float c, int lane, float* m, float* l,
+                                           float* dsum) {
+  using namespace mmautil;
+  constexpr int DK = DP / 16;
+  const int t = lane & 3;
+  // -- p1 scores --
+  float s[NT][4], dp[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t kb[4], vb[4];
+      ldsm_x4_trans(kb, ks + attn::trans_b(pitch, 16 * kk, c0 + 16 * np, lane));
+      ldsm_x4_trans(vb, vs + attn::trans_b(pitch, 16 * kk, c0 + 16 * np, lane));
+      mma_bf16(s[2 * np], qa[kk], kb);
+      mma_bf16(s[2 * np + 1], qa[kk], kb + 2);
+      mma_bf16(dp[2 * np], ga[kk], vb);
+      mma_bf16(dp[2 * np + 1], ga[kk], vb + 2);
+    }
+  }
+  // -- p1 softmax --
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (MASK && c0 + 8 * nt + 2 * t + (i & 1) >= length) s[nt][i] = -INFINITY;
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float grown = fmaxf(m[r], attn::quad_max(mx[r]) * c);
+    const float f = attn::ex2(m[r] - grown);
+    m[r] = grown;
+    l[r] *= f;
+    dsum[r] *= f;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = attn::ex2(fmaf(s[nt][i], c, -m[i >> 1]));
+      l[i >> 1] += p;
+      dsum[i >> 1] = fmaf(p, dp[nt][i], dsum[i >> 1]);
+    }
+  }
+  // -- p1 end --
 }
 
-// Stores an f32 fragment pair (rows r0 = r, r1 = r + 8; columns d, d + 1)
-// times `mul` into the head's [depth, length] block of out, inside the tensor.
-__device__ __forceinline__ void store_frag(bf16* out, const float* acc, int r, int d, int depth,
-                                           int length, float mul) {
-  const int rows[2] = {r, r + 8};
+// Pass 1 for a warp's 16-query tile [r0, r0 + 16): its rows' max (log2
+// units), 1 / sum and rowsum(P ∘ dP) into row_m, row_il, row_d.
+template <int DP>
+__device__ __forceinline__ void stats_tile(const bf16* qs, const bf16* ks, const bf16* vs,
+                                           const bf16* gs, int pitch, int r0, int lp,
+                                           int length, float c, int lane, float* row_m,
+                                           float* row_il, float* row_d) {
+  using namespace mmautil;
+  constexpr int DK = DP / 16;
+  uint32_t qa[DK][4], ga[DK][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = rows[i >> 1], col = d + (i & 1);
-    if (row < length && col < depth)
-      out[static_cast<size_t>(col) * length + row] = __float2bfloat16(acc[i] * mul);
+  for (int kk = 0; kk < DK; ++kk) {
+    ldsm_x4_trans(qa[kk], qs + attn::trans_a(pitch, 16 * kk, r0, lane));
+    ldsm_x4_trans(ga[kk], gs + attn::trans_a(pitch, 16 * kk, r0, lane));
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+  const int last = lp % 32 ? lp - 16 : lp - 32;  // the first key of the last step
+  for (int c0 = 0; c0 < last; c0 += 32)
+    stats_step<DP, 4, false>(qa, ga, ks, vs, pitch, c0, length, c, lane, m, l, dsum);
+  if (lp % 32)
+    stats_step<DP, 2, true>(qa, ga, ks, vs, pitch, last, length, c, lane, m, l, dsum);
+  else
+    stats_step<DP, 4, true>(qa, ga, ks, vs, pitch, last, length, c, lane, m, l, dsum);
+  const float il[2] = {1.f / attn::quad_sum(l[0]), 1.f / attn::quad_sum(l[1])};
+  const float ds[2] = {attn::quad_sum(dsum[0]), attn::quad_sum(dsum[1])};
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + (lane >> 2) + 8 * r;
+      row_m[row] = m[r];
+      row_il[row] = il[r];
+      row_d[row] = ds[r] * il[r];
+    }
   }
 }
 
+// Pass 2, one iteration of a warp's 16-key tile [k0, k0 + 16) against the
+// 16-query step [q0, q0 + 16): Sᵀ, dPᵀ,
+// then Pᵀ = 2^(y − m) / l and dSᵀ = Pᵀ ∘ (dPᵀ − rowsum) with the queries'
+// statistics (zero for keys or queries past length), dV += Pᵀ g and dK +=
+// dSᵀ Q in registers, and the step's dQ rows += dS K (K's B fragments
+// loaded here, not held) in the f32 sums. Each product's operands are
+// built just before it, so that no more than one of them is live at once.
 template <int DP>
-__global__ void __launch_bounds__(MMA_THREADS)
+__device__ __forceinline__ void grad_step(const bf16* qs, const bf16* ks, const bf16* vs,
+                                          const bf16* gs,
+                                          const float* row_m, const float* row_il,
+                                          const float* row_d, float* dq, int pitch, int k0,
+                                          int q0, int length, float c, int lane,
+                                          float (*dk)[4], float (*dv)[4]) {
+  using namespace mmautil;
+  constexpr int DK = DP / 16, DT = DP / 8, DQ_PITCH = DP + 8;
+  const int g = lane >> 2, t = lane & 3;
+  // -- p2 scores --
+  float s[2][4], dpt[2][4];  // rows: keys k0 + g, + 8; columns: queries q0 + 8 nt + 2t, + 1
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = dpt[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+    uint32_t ka[4], va[4], qb[4], gb[4];  // A: K and V rows (keys); B: Qᵀ and gᵀ
+    ldsm_x4_trans(ka, ks + attn::trans_a(pitch, 16 * kk, k0, lane));
+    ldsm_x4_trans(va, vs + attn::trans_a(pitch, 16 * kk, k0, lane));
+    ldsm_x4_trans(qb, qs + attn::trans_b(pitch, 16 * kk, q0, lane));
+    ldsm_x4_trans(gb, gs + attn::trans_b(pitch, 16 * kk, q0, lane));
+    mma_bf16(s[0], ka, qb);
+    mma_bf16(s[1], ka, qb + 2);
+    mma_bf16(dpt[0], va, gb);
+    mma_bf16(dpt[1], va, gb + 2);
+  }
+  // -- p2 softmax --
+  const bool edge = k0 + 16 > length || q0 + 16 > length;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int q = q0 + 8 * nt + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float mq = row_m[q + e], lq = row_il[q + e], dq1 = row_d[q + e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 2 * r + e;
+        float p = attn::ex2(fmaf(s[nt][i], c, -mq)) * lq;
+        if (edge && (k0 + g + 8 * r >= length || q + e >= length)) p = 0.f;
+        s[nt][i] = p;
+        dpt[nt][i] = p * (dpt[nt][i] - dq1);
+      }
+    }
+  }
+  // -- p2 products --
+  {
+    uint32_t hi[4], lo[4];
+    attn::a_split(s, 0, hi, lo);
+#pragma unroll
+    for (int dp = 0; dp < DT / 2; ++dp) {
+      uint32_t gb[4];
+      ldsm_x4(gb, gs + attn::plain_b(pitch, 16 * dp, q0, lane));
+      mma_bf16(dv[2 * dp], hi, gb);
+      mma_bf16(dv[2 * dp], lo, gb);
+      mma_bf16(dv[2 * dp + 1], hi, gb + 2);
+      mma_bf16(dv[2 * dp + 1], lo, gb + 2);
+    }
+  }
+  uint32_t ah[4], al[4];  // dS (rows: queries, k: keys): dSᵀ's 8 x 8 blocks transposed
+  {
+    uint32_t hi[4], lo[4];
+    attn::a_split(dpt, 0, hi, lo);
+#pragma unroll
+    for (int dp = 0; dp < DT / 2; ++dp) {
+      uint32_t qb[4];
+      ldsm_x4(qb, qs + attn::plain_b(pitch, 16 * dp, q0, lane));
+      mma_bf16(dk[2 * dp], hi, qb);
+      mma_bf16(dk[2 * dp], lo, qb);
+      mma_bf16(dk[2 * dp + 1], hi, qb + 2);
+      mma_bf16(dk[2 * dp + 1], lo, qb + 2);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ah[j] = movmatrix_trans(hi[(j & 1) * 2 + (j >> 1)]);
+      al[j] = movmatrix_trans(lo[(j & 1) * 2 + (j >> 1)]);
+    }
+  }
+#pragma unroll
+  for (int dp = 0; dp < DT / 2; ++dp) {
+    uint32_t kb[4];  // B fragments of K (k: keys, n: d) for d tiles 2 dp, 2 dp + 1
+    ldsm_x4(kb, ks + attn::plain_b(pitch, 16 * dp, k0, lane));
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float d4[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(d4, ah, kb + 2 * half);
+      mma_bf16(d4, al, kb + 2 * half);
+      const int col = 8 * (2 * dp + half) + 2 * t;
+      float2* r0 = reinterpret_cast<float2*>(dq + (q0 + g) * DQ_PITCH + col);
+      float2* r1 = r0 + 4 * DQ_PITCH;  // row q0 + g + 8
+      float2 x = *r0, y = *r1;
+      x.x += d4[0];
+      x.y += d4[1];
+      y.x += d4[2];
+      y.y += d4[3];
+      *r0 = x;
+      *r1 = y;
+    }
+  }
+  // -- p2 end --
+}
+
+template <int DP>
+__global__ void __launch_bounds__(256, DP <= 32 ? 2 : 1)
     mha_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ go, bf16* __restrict__ dq,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int depth, int length,
-                float scale) {
-  constexpr int QP = DP + 8;
-  constexpr int DK = DP / 16;
-  constexpr int DT = DP / 8;
-  constexpr int WARPS = MMA_THREADS / 32;
-  const int lp = attn::round_up(length, CHUNK);
-  const int vp = lp + 8;
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int batch_heads, int depth,
+                int length, float scale, int per_block) {
+  using namespace mmautil;
+  constexpr int DT = DP / 8, DQ_PITCH = DP + 8;
+  const int lp = attn::round_up(length, 16), pitch = lp + 8, tiles = lp / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [lp][QP] rows: query l, k = d
-  bf16* ks = qs + lp * QP;                    // [lp][QP]
-  bf16* vs = ks + lp * QP;                    // [lp][QP]
-  bf16* gs = vs + lp * QP;                    // [lp][QP]
-  bf16* qts = gs + lp * QP;                   // [DP][vp] rows: d, k = l
-  bf16* kts = qts + DP * vp;                  // [DP][vp]
-  bf16* vts = kts + DP * vp;                  // [DP][vp]
-  bf16* gts = vts + DP * vp;                  // [DP][vp]
-  float* row_max = reinterpret_cast<float*>(gts + DP * vp);  // [lp]
-  float* row_sum = row_max + lp;                               // [lp]
-  float* row_dot = row_sum + lp;                               // [lp] rowsum(g ∘ O)
-
-  const size_t base = static_cast<size_t>(blockIdx.x) * depth * length;
-  attn::zero_shared(smem, reinterpret_cast<unsigned char*>(row_max) - smem);
-  __syncthreads();
-  attn::stage(q + base, depth, length, qs, QP, qts, vp);
-  attn::stage(k + base, depth, length, ks, QP, kts, vp);
-  attn::stage(v + base, depth, length, vs, QP, vts, vp);
-  attn::stage(go + base, depth, length, gs, QP, gts, vp);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  // ---- phase 1: a warp per query tile: statistics, rowsum(g ∘ O), dQ
-  for (int qt = warp; qt < lp / 16; qt += WARPS) {
-    const int r0 = qt * 16 + g, r1 = r0 + 8;
-    uint32_t qa[DK][4], ga[DK][4];
-    attn::a_rows<DK>(qs, QP, qt * 16, g, t, qa);
-    attn::a_rows<DK>(gs, QP, qt * 16, g, t, ga);
-    float m[2], l[2], acc[DT][4];  // pass A: the statistics and O
-    attn::attend_tile<DP>(qa, ks, vts, vp, lp, length, scale, g, t, m, l, acc);
-    const float m0 = m[0], m1 = m[1], l0 = l[0], l1 = l[1];
-    float dot0 = 0.f, dot1 = 0.f;  // rowsum(g ∘ O), O = acc / l
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int d = dt * 8 + 2 * t;
-      dot0 += attn::to_f32(gs[r0 * QP + d]) * acc[dt][0] +
-              attn::to_f32(gs[r0 * QP + d + 1]) * acc[dt][1];
-      dot1 += attn::to_f32(gs[r1 * QP + d]) * acc[dt][2] +
-              attn::to_f32(gs[r1 * QP + d + 1]) * acc[dt][3];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [DP][pitch]: q, then dq
+  bf16* ks = qs + DP * pitch;                 // k, then dk
+  bf16* vs = ks + DP * pitch;                 // v, then dv
+  bf16* gs = vs + DP * pitch;                 // g
+  float* dqs = reinterpret_cast<float*>(gs + DP * pitch);  // [lp][DQ_PITCH] dQ sums
+  float* row_m = dqs + lp * DQ_PITCH;                      // [lp] the statistics
+  float* row_il = row_m + lp;
+  float* row_d = row_il + lp;
+  const size_t n = static_cast<size_t>(depth) * length;
+  const int h0 = blockIdx.x * per_block, h1 = min(h0 + per_block, batch_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const float c = scale * attn::LOG2E;
+  // -- begin --
+  for (int i = 0; i < 4; ++i) attn::zero_rows(qs + i * DP * pitch, depth, DP, pitch);
+  for (int h = h0; h < h1; ++h) {
+    // -- stage --
+    const size_t at = h * n;
+    // -- landed --
+    if (h + 1 < h1) {
+      attn::prefetch_l2(q + at + n, n);
+      attn::prefetch_l2(k + at + n, n);
+      attn::prefetch_l2(v + at + n, n);
+      attn::prefetch_l2(go + at + n, n);
     }
-    dot0 = attn::quad_sum(dot0) / l0;
-    dot1 = attn::quad_sum(dot1) / l1;
-    if (t == 0) {
-      row_max[r0] = m0; row_sum[r0] = l0; row_dot[r0] = dot0;
-      row_max[r1] = m1; row_sum[r1] = l1; row_dot[r1] = dot1;
-    }
-
-    float dqa[DT][4];  // pass B: dQ = dS K
+    attn::stage_tiles<4>({{q + at, k + at, v + at, go + at}}, qs, DP, depth, length, lp, pitch);
+    for (int i = threadIdx.x; i < lp * DQ_PITCH / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(dqs)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    // -- staged --
+    __syncthreads();
+    // -- tiles --
+    for (int r0 = 16 * warp; r0 < lp; r0 += 16 * warps)
+      stats_tile<DP>(qs, ks, vs, gs, pitch, r0, lp, length, c, lane, row_m, row_il, row_d);
+    __syncthreads();
+    for (int round = 0; round * warps < tiles; ++round) {
+      const int kt = warp + round * warps, k0 = 16 * kt;
+      const bool mine = kt < tiles;  // a warp without a tile still meets the barriers
+      float dka[DT][4], dva[DT][4];
+      if (mine) {
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) dqa[dt][0] = dqa[dt][1] = dqa[dt][2] = dqa[dt][3] = 0.f;
-    for (int c0 = 0; c0 < lp; c0 += CHUNK) {
-      float s[4][4], dp[4][4];
+        for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        const bf16* kr = ks + (c0 + nt * 8 + g) * QP + 2 * t;
-        const bf16* vr = vs + (c0 + nt * 8 + g) * QP + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          attn::mma(s[nt], qa[kk], attn::ld32(kr + kk * 16), attn::ld32(kr + kk * 16 + 8));
-          attn::mma(dp[nt], ga[kk], attn::ld32(vr + kk * 16), attn::ld32(vr + kk * 16 + 8));
-        }
+          for (int i = 0; i < 4; ++i) dka[dt][i] = dva[dt][i] = 0.f;
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool valid = c0 + nt * 8 + 2 * t + (i & 1) < length;
-          const float p = valid ? attn::exp_approx(s[nt][i] * scale - (i < 2 ? m0 : m1)) /
-                                      (i < 2 ? l0 : l1)
-                                : 0.f;
-          s[nt][i] = p * (dp[nt][i] - (i < 2 ? dot0 : dot1));  // dS
+      for (int i = 0; i < tiles; ++i) {
+        if (mine) {
+          const int q0 = 16 * ((kt + i) % tiles);  // staggered: one warp a query step
+          grad_step<DP>(qs, ks, vs, gs, row_m, row_il, row_d, dqs, pitch, k0, q0, length, c,
+                        lane, dka, dva);
         }
+        // -- p2 barrier --
+        __syncthreads();
+        // -- p2 barrier done --
       }
+      if (mine) {  // dK and dV into the tile's own columns of k's and v's tiles
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t hi[4], lo[4];
-        attn::a_operand(s, kk, hi, lo);
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          const bf16* kr = kts + (dt * 8 + g) * vp + c0 + kk * 16 + 2 * t;
-          const uint32_t b0 = attn::ld32(kr), b1 = attn::ld32(kr + 8);
-          attn::mma(dqa[dt], hi, b0, b1);
-          attn::mma(dqa[dt], lo, b0, b1);
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          const float(*a)[4] = dka + 2 * dp;
+          const float(*b)[4] = dva + 2 * dp;
+          const uint32_t rk[4] = {attn::pack2(a[0][0] * scale, a[0][1] * scale),
+                                  attn::pack2(a[0][2] * scale, a[0][3] * scale),
+                                  attn::pack2(a[1][0] * scale, a[1][1] * scale),
+                                  attn::pack2(a[1][2] * scale, a[1][3] * scale)};
+          const uint32_t rv[4] = {attn::pack2(b[0][0], b[0][1]), attn::pack2(b[0][2], b[0][3]),
+                                  attn::pack2(b[1][0], b[1][1]), attn::pack2(b[1][2], b[1][3])};
+          stsm_x4_trans(ks + attn::plain_b(pitch, 16 * dp, k0, lane), rk);
+          stsm_x4_trans(vs + attn::plain_b(pitch, 16 * dp, k0, lane), rv);
         }
       }
     }
+    // -- epilogue --
+    // dQ (scaled, rounded) into q's tile: units of 8 queries of one d, d fastest
+    for (attn::UnitWalk w(depth); w.d < lp / 8; w.next()) {
+      const float* src = dqs + 8 * w.d * DQ_PITCH + w.c;
+      uint32_t r[4];
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      store_frag(dq + base, dqa[dt], qt * 16 + g, dt * 8 + 2 * t, depth, length, scale);
+      for (int j = 0; j < 4; ++j)
+        r[j] = attn::pack2(src[2 * j * DQ_PITCH] * scale, src[(2 * j + 1) * DQ_PITCH] * scale);
+      *reinterpret_cast<uint4*>(qs + w.c * pitch + 8 * w.d) = make_uint4(r[0], r[1], r[2], r[3]);
+    }
+    __syncthreads();
+    attn::store_tile(dq + at, qs, depth, length, pitch);
+    attn::store_tile(dk + at, ks, depth, length, pitch);
+    attn::store_tile(dv + at, vs, depth, length, pitch);
+    __syncthreads();
+    // -- stored --
   }
-  __syncthreads();
-
-  // ---- phase 2: a warp per key tile: dK = dSᵀ Q, dV = Pᵀ g
-  for (int kt = warp; kt < lp / 16; kt += WARPS) {
-    uint32_t ka[DK][4], va[DK][4];
-    attn::a_rows<DK>(ks, QP, kt * 16, g, t, ka);
-    attn::a_rows<DK>(vs, QP, kt * 16, g, t, va);
-    float dka[DT][4], dva[DT][4];
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
-      dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
-    }
-    for (int c0 = 0; c0 < lp; c0 += CHUNK) {
-      float pt[4][4], dst[4][4];  // rows: keys of the tile; columns: queries c0 ..
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float st[4] = {0.f, 0.f, 0.f, 0.f}, dpt[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* qr = qs + (c0 + nt * 8 + g) * QP + 2 * t;
-        const bf16* gr = gs + (c0 + nt * 8 + g) * QP + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          attn::mma(st, ka[kk], attn::ld32(qr + kk * 16), attn::ld32(qr + kk * 16 + 8));
-          attn::mma(dpt, va[kk], attn::ld32(gr + kk * 16), attn::ld32(gr + kk * 16 + 8));
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int l = c0 + nt * 8 + 2 * t + (i & 1);
-          float p = 0.f;
-          if (l < length) p = attn::exp_approx(st[i] * scale - row_max[l]) / row_sum[l];
-          pt[nt][i] = p;
-          dst[nt][i] = l < length ? p * (dpt[i] - row_dot[l]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t phi[4], plo[4], shi[4], slo[4];
-        attn::a_operand(pt, kk, phi, plo);
-        attn::a_operand(dst, kk, shi, slo);
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          const bf16* gr = gts + (dt * 8 + g) * vp + c0 + kk * 16 + 2 * t;
-          const bf16* qr = qts + (dt * 8 + g) * vp + c0 + kk * 16 + 2 * t;
-          const uint32_t g0 = attn::ld32(gr), g1 = attn::ld32(gr + 8);
-          const uint32_t q0 = attn::ld32(qr), q1 = attn::ld32(qr + 8);
-          attn::mma(dva[dt], phi, g0, g1);
-          attn::mma(dva[dt], plo, g0, g1);
-          attn::mma(dka[dt], shi, q0, q1);
-          attn::mma(dka[dt], slo, q0, q1);
-        }
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      store_frag(dk + base, dka[dt], kt * 16 + g, dt * 8 + 2 * t, depth, length, scale);
-      store_frag(dv + base, dva[dt], kt * 16 + g, dt * 8 + 2 * t, depth, length, 1.f);
-    }
-  }
+  // -- end --
 }
 
 template <int DP>
@@ -364,21 +492,39 @@ __global__ void __launch_bounds__(SIMT_THREADS)
   }
 }
 
-// Checks the block's shared memory against the device, raises the
-// kernel's limit to it and launches one block per (b, h).
-template <typename T, typename Kernel>
-int launch(Kernel kernel, size_t smem, int threads, cudaStream_t stream, const void* q,
-           const void* k, const void* v, const void* go, void* dq, void* dk, void* dv,
-           int batch_heads, int depth, int length, float scale) {
+// The bf16 kernel at depth tile DP: the plan's shared memory checked
+// against the device and granted, `blocks` blocks of `threads`.
+template <int DP>
+int launch_mma(cudaStream_t stream, const void* q, const void* k, const void* v, const void* go,
+               void* dq, void* dk, void* dv, int batch_heads, int depth, int length,
+               float scale) {
+  const attn::Plan p = attn::bwd_plan(batch_heads, DP, length);
+  if (p.smem > attn::max_shared_bytes()) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err =
+      cudaFuncSetAttribute(mha_bwd_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_bwd_mma<DP><<<p.blocks, p.threads, p.smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(go), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), batch_heads, depth, length, scale, p.per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 kernel at depth tile DP: one block per (b, h).
+template <int DP>
+int launch_simt(cudaStream_t stream, const void* q, const void* k, const void* v, const void* go,
+                void* dq, void* dk, void* dv, int batch_heads, int depth, int length,
+                float scale) {
+  const size_t smem = simt_smem<DP>(length);
   if (smem > static_cast<size_t>(attn::max_shared_bytes()))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      mha_bwd_simt<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<batch_heads, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(go), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      depth, length, scale);
+  mha_bwd_simt<DP><<<batch_heads, SIMT_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(go), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), depth, length, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,26 +537,14 @@ extern "C" int mha_bwd(int is_bf16, const void* q, const void* k, const void* v,
                        float scale, cudaStream_t stream) {
   if (batch_heads <= 0 || depth <= 0 || depth > 64 || length <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bh = batch_heads;
+  const int bh = batch_heads, d = depth, l = length;
   if (is_bf16) {
-    if (depth <= 16)
-      return launch<bf16>(mha_bwd_mma<16>, mma_smem<16>(length), MMA_THREADS, stream, q, k, v,
-                          go, dq, dk, dv, bh, depth, length, scale);
-    if (depth <= 32)
-      return launch<bf16>(mha_bwd_mma<32>, mma_smem<32>(length), MMA_THREADS, stream, q, k, v,
-                          go, dq, dk, dv, bh, depth, length, scale);
-    return launch<bf16>(mha_bwd_mma<64>, mma_smem<64>(length), MMA_THREADS, stream, q, k, v, go,
-                        dq, dk, dv, bh, depth, length, scale);
+    if (depth <= 16) return launch_mma<16>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
+    if (depth <= 32) return launch_mma<32>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
+    return launch_mma<64>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
   }
-  if (depth <= 8)
-    return launch<float>(mha_bwd_simt<8>, simt_smem<8>(length), SIMT_THREADS, stream, q, k, v,
-                         go, dq, dk, dv, bh, depth, length, scale);
-  if (depth <= 16)
-    return launch<float>(mha_bwd_simt<16>, simt_smem<16>(length), SIMT_THREADS, stream, q, k, v,
-                         go, dq, dk, dv, bh, depth, length, scale);
-  if (depth <= 32)
-    return launch<float>(mha_bwd_simt<32>, simt_smem<32>(length), SIMT_THREADS, stream, q, k, v,
-                         go, dq, dk, dv, bh, depth, length, scale);
-  return launch<float>(mha_bwd_simt<64>, simt_smem<64>(length), SIMT_THREADS, stream, q, k, v,
-                       go, dq, dk, dv, bh, depth, length, scale);
+  if (depth <= 8) return launch_simt<8>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
+  if (depth <= 16) return launch_simt<16>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
+  if (depth <= 32) return launch_simt<32>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
+  return launch_simt<64>(stream, q, k, v, go, dq, dk, dv, bh, d, l, scale);
 }

@@ -6,32 +6,45 @@
 //   s[l, m] = (sum_d q[d, l] k[d, m]) * scale     (keys past L: -1e30)
 //   p[l, m] = exp(s[l, m] - max_m s[l, :]) / sum_m exp(...)
 //   o[d, l] = sum_m v[d, m] p[l, m]                (rounded to the i/o type)
-// The layout and padding are described in attention.cuh.
+// The layout, the staging and the padding are described in attention.cuh.
 //
-// What bounds it on an H100: the bytes. Sepformer's intra-chunk attention
-// at serving width (B' 12,672 sequences, H 8, L 250, D 32, bf16) moves q,
-// k, v and o once, 6.49 GB: 1.94 ms at 3.35 TB/s, against 0.82 ms for its
-// 811 GFLOP at 989 TFLOP/s; at D = 32 it does L/2 operations a byte, under
-// the card's ~295. The inter-chunk launch (B' 48,000, L 66) is bound by
-// bytes too.
+// What bounds it on an H100: the bytes, then the softmax. Sepformer's
+// intra-chunk attention at serving width (B' 12,672 sequences, H 8, L 250,
+// D 32, bf16) moves q, k, v and o once, 6.49 GB: 1.94 ms at 3.35 TB/s,
+// against 0.82 ms for its 811 GFLOP at 989 TFLOP/s (1.3 TFLOP issued: L
+// padded to 256 and P V twice, for P's hi and lo parts) and about 1.8 ms of
+// the SFU for its 6.6 G exp2 (16 a clock an SM); the inter-chunk launch
+// (B' 48,000, L 66) moves the same bytes.
 //
-// Design: one block per (b, h), four warps. The TPU kernel groups 16
-// sequences a grid cell for issue overhead and pads L to 128 lanes; here a
-// block stages its head's q and k as rows [l][d] (the A and B operands of
-// Q Kᵀ want d contiguous, the packed layout has l contiguous) and v as
-// [d][m] (the B operand of P V wants m contiguous), all padded rows zero.
-// Each warp takes query tiles of 16 rows and walks the keys in chunks of
-// 32 with an online softmax (running row max and sum, the accumulator
-// rescaled when the max grows), so neither the [L, L] scores (250 KB in
-// f32 at L 250, more than a block's 227 KB) nor a full score row exists
-// anywhere: a warp holds a 16 x 32 tile in registers. The output tile goes
-// through shared memory so that the stores run along l. bf16 uses
-// mma.sync with P split into hi and lo bf16 parts (attention.cuh); f32
-// runs one thread per query row on full-f32 FMA.
+// Design (bf16): a block of up to eight warps walks eight consecutive (b,
+// h) head blocks (attention.cuh: fwd_plan; L 250: eight warps; L 66: five,
+// a sequence's eight heads). Each head's q, k and v land in shared memory
+// by bulk copies (cp.async.bulk, counted on an mbarrier) issued under the
+// previous head's products, and are realigned from there into pitched
+// tiles [d][lp + 8] (where a head block is not whole 16-byte words at a
+// 16-byte address, from global memory after an L2 prefetch instead).
+// After a barrier each warp takes its 16-query tiles, two at once where
+// every warp has two (L 250): Q's A fragments by ldmatrix.trans, then an
+// online softmax over the keys in steps of 32 (the last one of 16 where lp
+// is an odd number of 16s: L 66 pads to 80), K's B fragments by
+// ldmatrix.trans and V's by ldmatrix, shared by the two tiles; the scale
+// folded into the exp2's FFMA, the running row max and sum in registers,
+// the accumulator rescaled when the max grows, keys past L masked in the
+// last step only, P split into hi and lo for P V. A warp's output tile
+// goes by stmatrix.trans into its own columns of q's tile; after a barrier
+// the block stores the head along l in 16-byte words, and a barrier frees
+// the tiles for the next head (a second q tile, so that the stores could
+// run beside the next head's staging, measured slower: PERF.md). Neither
+// the [L, L] scores (250 KB in f32 at L 250) nor a full score row exists
+// anywhere: a warp holds a 16 x 32 tile of each of its query tiles in
+// registers. f32 runs one block per (b, h), one thread per query row on
+// full-f32 FMA.
 //
-// Shared memory (bf16, L 250, D 32): q and k 2 x 256 x 40, v and the
-// output tile 2 x 32 x 264 elements, 74,752 bytes (three blocks an SM).
-// A shape whose staging exceeds the device's limit is refused with
+// Shared memory (bf16, D 32): three tiles of 32 x 264 elements and three
+// landed head blocks of 16,016 bytes at L 250, 98,736 bytes (two blocks of
+// 256 threads an SM); 29,616 bytes at L 66 (three blocks of 160 threads,
+// by registers). Without the bulk copies the tiles alone. A shape whose
+// tiles exceed the device's limit is refused with
 // cudaErrorInvalidConfiguration before launch.
 
 #include <cuda_bf16.h>
@@ -45,78 +58,73 @@ namespace {
 using attn::bf16;
 using attn::CHUNK;
 
-constexpr int MMA_THREADS = 128;
 constexpr int SIMT_THREADS = 128;
 
 template <int DP>
-__host__ __device__ constexpr size_t mma_smem(int length) {
-  const int lp = attn::round_up(length, CHUNK);
-  return sizeof(bf16) * (2 * static_cast<size_t>(lp) * (DP + 8) +
-                         2 * static_cast<size_t>(DP) * (lp + 8));
-}
-
-template <int DP>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(256, 2)
     mha_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int depth, int length,
-                float scale) {
-  constexpr int QP = DP + 8;  // row pitch of qs, ks: conflict-free fragment loads
-  constexpr int DK = DP / 16;
-  constexpr int DT = DP / 8;
-  const int lp = attn::round_up(length, CHUNK);
-  const int vp = lp + 8;  // row pitch of vts, ots
+                const bf16* __restrict__ v, bf16* __restrict__ o, int batch_heads, int depth,
+                int length, float scale, int per_block, int raw, int pair) {
+  const int lp = attn::round_up(length, 16), pitch = lp + 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [lp][QP]
-  bf16* ks = qs + lp * QP;                    // [lp][QP]
-  bf16* vts = ks + lp * QP;                   // [DP][vp]
-  bf16* ots = vts + DP * vp;                  // [DP][vp]
-
-  const size_t base = static_cast<size_t>(blockIdx.x) * depth * length;
-  bf16* none = nullptr;
-  attn::zero_shared(smem, mma_smem<DP>(length));
-  __syncthreads();
-  attn::stage(q + base, depth, length, qs, QP, none, 0);
-  attn::stage(k + base, depth, length, ks, QP, none, 0);
-  attn::stage(v + base, depth, length, none, 0, vts, vp);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  for (int qt = warp; qt < lp / 16; qt += MMA_THREADS / 32) {
-    const int r0 = qt * 16 + g, r1 = r0 + 8;
-    uint32_t qa[DK][4];
-    attn::a_rows<DK>(qs, QP, qt * 16, g, t, qa);
-    float m[2], l[2], acc[DT][4];
-    attn::attend_tile<DP>(qa, ks, vts, vp, lp, length, scale, g, t, m, l, acc);
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int d = dt * 8 + 2 * t;
-      ots[d * vp + r0] = __float2bfloat16(acc[dt][0] / l[0]);
-      ots[(d + 1) * vp + r0] = __float2bfloat16(acc[dt][1] / l[0]);
-      ots[d * vp + r1] = __float2bfloat16(acc[dt][2] / l[1]);
-      ots[(d + 1) * vp + r1] = __float2bfloat16(acc[dt][3] / l[1]);
-    }
-  }
-  __syncthreads();
-  // the [depth, length] output block from ots, 8 elements a 16-byte store
-  // where the address and the count allow it
-  const int n = depth * length;
-  auto get = [&](int e) {
-    const int d = e / length;
-    return ots[d * vp + e - d * length];
+  __shared__ uint64_t landed;                 // the bulk copies' barrier
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [DP][pitch]: q, then the output
+  bf16* ks = qs + DP * pitch;                 // [DP][pitch]
+  bf16* vs = ks + DP * pitch;                 // [DP][pitch]
+  unsigned char* raws = reinterpret_cast<unsigned char*>(vs + DP * pitch);  // 3 x raw bytes
+  const size_t n = static_cast<size_t>(depth) * length;  // elements a head block
+  const int h0 = blockIdx.x * per_block, h1 = min(h0 + per_block, batch_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const float c = scale * attn::LOG2E;
+  // the three head blocks of head h into raws, counted on `landed`
+  auto fetch = [&](int h) {
+    const unsigned bytes = static_cast<unsigned>(2 * n);
+    attn::mbar_expect(&landed, 3 * bytes);
+    attn::bulk_copy(raws, q + h * n, bytes, &landed);
+    attn::bulk_copy(raws + raw, k + h * n, bytes, &landed);
+    attn::bulk_copy(raws + 2 * raw, v + h * n, bytes, &landed);
   };
-  if (n % 8 || reinterpret_cast<uintptr_t>(o + base) % 16) {
-    for (int e = threadIdx.x; e < n; e += MMA_THREADS) o[base + e] = get(e);
-    return;
+  // -- begin --
+  if (raw && threadIdx.x == 0) attn::mbar_init(&landed);
+  for (int i = 0; i < 3; ++i) attn::zero_rows(qs + i * DP * pitch, depth, DP, pitch);
+  __syncthreads();
+  if (raw && threadIdx.x == 0) fetch(h0);
+  for (int h = h0; h < h1; ++h) {
+    // -- stage --
+    const size_t at = h * n;
+    if (raw) attn::mbar_wait(&landed, (h - h0) & 1);
+    // -- landed --
+    if (raw) {
+      attn::realign_tiles<3>(raws, raw, qs, DP, depth, length, lp, pitch);
+    } else {
+      if (h + 1 < h1) {
+        attn::prefetch_l2(q + at + n, n);
+        attn::prefetch_l2(k + at + n, n);
+        attn::prefetch_l2(v + at + n, n);
+      }
+      attn::stage_tiles<3>({{q + at, k + at, v + at}}, qs, DP, depth, length, lp, pitch);
+    }
+    // -- staged --
+    __syncthreads();
+    // -- tiles --
+    if (raw && threadIdx.x == 0 && h + 1 < h1) fetch(h + 1);  // under this head's products
+    const int qt = DP <= 32 && pair ? 2 : 1;  // tiles a warp takes at once
+    for (int r0 = 16 * qt * warp; r0 < lp; r0 += 16 * qt * warps) {
+      if constexpr (DP <= 32) {
+        if (qt == 2) {
+          attn::attend_tiles<DP, 2>(qs, ks, vs, qs, pitch, r0, lp, length, c, lane);
+          continue;
+        }
+      }
+      attn::attend_tiles<DP, 1>(qs, ks, vs, qs, pitch, r0, lp, length, c, lane);
+    }
+    // -- epilogue --
+    __syncthreads();
+    attn::store_tile(o + at, qs, depth, length, pitch);
+    __syncthreads();
+    // -- stored --
   }
-  uint4* o4 = reinterpret_cast<uint4*>(o + base);
-  for (int i = threadIdx.x; i < n / 8; i += MMA_THREADS) {
-    uint4 raw;
-    bf16* vals = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vals[j] = get(i * 8 + j);
-    o4[i] = raw;
-  }
+  // -- end --
 }
 
 template <int DP>
@@ -184,21 +192,40 @@ __global__ void __launch_bounds__(SIMT_THREADS)
   }
 }
 
-// Checks the block's shared memory against the device, raises the
-// kernel's limit to it and launches one block per (b, h).
-template <typename T, typename Kernel>
-int launch(Kernel kernel, size_t smem, int threads, cudaStream_t stream, const void* q,
-           const void* k, const void* v, void* o, int batch_heads, int depth, int length,
-           float scale) {
+// The bf16 kernel at depth tile DP: the plan's shared memory checked
+// against the device and granted, `blocks` blocks of `threads`; the bulk
+// copies where every head block is whole 16-byte words at a 16-byte
+// address.
+template <int DP>
+int launch_mma(cudaStream_t stream, const void* q, const void* k, const void* v, void* o,
+               int batch_heads, int depth, int length, float scale) {
+  const bool copyable = (depth * length) % 8 == 0 && attn::aligned16(q) && attn::aligned16(k) &&
+                        attn::aligned16(v);
+  const int shared = attn::max_shared_bytes();
+  const attn::Plan p = attn::fwd_plan(batch_heads, DP, depth, length, copyable, shared);
+  if (p.smem > shared) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t err =
+      cudaFuncSetAttribute(mha_fwd_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_fwd_mma<DP><<<p.blocks, p.threads, p.smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), batch_heads, depth, length, scale, p.per_block, p.raw, p.pair);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 kernel at depth tile DP: one block per (b, h).
+template <int DP>
+int launch_simt(cudaStream_t stream, const void* q, const void* k, const void* v, void* o,
+                int batch_heads, int depth, int length, float scale) {
+  const size_t smem = simt_smem<DP>(length);
   if (smem > static_cast<size_t>(attn::max_shared_bytes()))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      mha_fwd_simt<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<batch_heads, threads, smem, stream>>>(static_cast<const T*>(q),
-                                                 static_cast<const T*>(k),
-                                                 static_cast<const T*>(v), static_cast<T*>(o),
-                                                 depth, length, scale);
+  mha_fwd_simt<DP><<<batch_heads, SIMT_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), depth, length, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -214,24 +241,12 @@ extern "C" int mha_fwd(int is_bf16, const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const int bh = batch_heads;
   if (is_bf16) {
-    if (depth <= 16)
-      return launch<bf16>(mha_fwd_mma<16>, mma_smem<16>(length), MMA_THREADS, stream, q, k, v, o,
-                          bh, depth, length, scale);
-    if (depth <= 32)
-      return launch<bf16>(mha_fwd_mma<32>, mma_smem<32>(length), MMA_THREADS, stream, q, k, v, o,
-                          bh, depth, length, scale);
-    return launch<bf16>(mha_fwd_mma<64>, mma_smem<64>(length), MMA_THREADS, stream, q, k, v, o,
-                        bh, depth, length, scale);
+    if (depth <= 16) return launch_mma<16>(stream, q, k, v, o, bh, depth, length, scale);
+    if (depth <= 32) return launch_mma<32>(stream, q, k, v, o, bh, depth, length, scale);
+    return launch_mma<64>(stream, q, k, v, o, bh, depth, length, scale);
   }
-  if (depth <= 8)
-    return launch<float>(mha_fwd_simt<8>, simt_smem<8>(length), SIMT_THREADS, stream, q, k, v, o,
-                         bh, depth, length, scale);
-  if (depth <= 16)
-    return launch<float>(mha_fwd_simt<16>, simt_smem<16>(length), SIMT_THREADS, stream, q, k, v,
-                         o, bh, depth, length, scale);
-  if (depth <= 32)
-    return launch<float>(mha_fwd_simt<32>, simt_smem<32>(length), SIMT_THREADS, stream, q, k, v,
-                         o, bh, depth, length, scale);
-  return launch<float>(mha_fwd_simt<64>, simt_smem<64>(length), SIMT_THREADS, stream, q, k, v, o,
-                       bh, depth, length, scale);
+  if (depth <= 8) return launch_simt<8>(stream, q, k, v, o, bh, depth, length, scale);
+  if (depth <= 16) return launch_simt<16>(stream, q, k, v, o, bh, depth, length, scale);
+  if (depth <= 32) return launch_simt<32>(stream, q, k, v, o, bh, depth, length, scale);
+  return launch_simt<64>(stream, q, k, v, o, bh, depth, length, scale);
 }

@@ -1,8 +1,11 @@
-// Staging and fragment helpers shared by the bf16 implicit GEMMs on Hopper
-// (sm_90a): dw_gemm.cuh (the fused blocks' weight gradients) and
-// block_mma.cuh (the decoder block and its input gradient).
+// Staging and fragment helpers shared by the bf16 kernels on Hopper
+// (sm_90a): dw_gemm.cuh (the fused blocks' weight gradients),
+// block_mma.cuh (the block kernels and their input gradients) and
+// attention.cuh (the attention kernels).
 //
-// - mma.sync m16n8k16 (bf16 in, f32 accumulate) and ldmatrix fragments;
+// - mma.sync m16n8k16 (bf16 in, f32 accumulate); ldmatrix fragments, also
+//   transposed (.trans: the operand stored with k along its rows), the
+//   transposed stmatrix and the in-register transpose movmatrix;
 // - 16-byte global loads, predicated without a branch, of the aligned
 //   chunks around a row of frames, and the register shift (realign) that
 //   takes eight frames starting at any of the eight 2-byte offsets of a
@@ -33,6 +36,34 @@ __device__ __forceinline__ void ldsm_x2(uint32_t* r, const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
+}
+// Thread (g, t) of the warp gets elements [2t][g] and [2t + 1][g] of each
+// 8 x 8 matrix, whose eight rows lanes 8j .. 8j + 7 address: the fragment
+// of the transpose of what is stored.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+// The inverse of ldsm_x4_trans: register j of thread (g, t), elements [g][2t]
+// and [g][2t + 1] of matrix j, lands at [2t][g], [2t + 1][g] of the rows that
+// lanes 8j .. 8j + 7 address.
+__device__ __forceinline__ void stsm_x4_trans(bf16* p, const uint32_t* r) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n"
+               ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+// The 8 x 8 matrix held as one register a lane (row g, columns 2t, 2t + 1),
+// transposed across the warp.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(

@@ -691,11 +691,15 @@ def _mha_inputs(batch, heads, length, depth, dtype, dev, seed=0, n=3):
 
 
 # (B, H, L, D): ragged (L, D off every tile), Sepformer's intra and inter
-# chunks, the small Sepformer's depth 8, a depth between tile sizes, and a
-# head block of D * L = 444 elements (bf16: not whole 16-byte vectors, and
-# every other block unaligned: the element-wise staging)
+# chunks, the small Sepformer's depth 8, a depth between tile sizes, a head
+# block of D * L = 444 elements (bf16: not whole 16-byte vectors, and every
+# other block unaligned: the element-wise stores); L at the edges of the
+# 16-steps (16, 17, 80, 81, 256), B * H not a multiple of the eight heads a
+# bf16 block walks (9 at L 66, 5 at L 250), depth 64, and L under one 16-byte
+# word (5)
 MHA_SHAPES = [(3, 2, 50, 16), (4, 8, 250, 32), (8, 8, 66, 32), (2, 4, 37, 8), (2, 2, 40, 24),
-              (2, 2, 37, 12)]
+              (2, 2, 37, 12), (1, 2, 16, 32), (1, 2, 17, 32), (2, 2, 80, 32), (2, 2, 81, 32),
+              (1, 2, 256, 32), (3, 3, 66, 32), (5, 1, 250, 32), (2, 2, 70, 64), (2, 2, 5, 16)]
 # f32: the same FMA arithmetic in another order (the bf16 kernel's probabilities
 # go through exp2, 2e-6 relative); bf16: both round the same f32 values once,
 # so a value may land one bf16 step (2^-8 relative) apart
@@ -742,14 +746,39 @@ def test_fused_mha_gradients_on_card_match_cpu(card):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_attention_kernels_refuse_what_they_do_not_take(card):
-    """A depth over 64, and a bf16 backward at L 400 (its staging exceeds a
-    block's shared memory), raise instead of launching."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,heads,length,depth", [(2, 8, 66, 32), (1, 4, 250, 32)])
+def test_attention_kernels_take_an_unaligned_base(card, batch, heads, length, depth, dtype):
+    """Packed tensors that start one element past an allocation's 16-byte
+    boundary (every head block unaligned: the forward stages from global
+    memory, at L 250 with two tiles a warp; element-wise stores) give what
+    aligned copies give."""
     from speech_enhancement_torch.kernels.attention import mha_bwd, mha_fwd
+    aligned = _mha_inputs(batch, heads, length, depth, dtype, card, seed=3, n=4)
+    shifted = []
+    for x in aligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=card)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    torch.testing.assert_close(mha_fwd(*shifted[:3], heads), mha_fwd(*aligned[:3], heads),
+                               atol=0.0, rtol=0.0)
+    for got, want in zip(mha_bwd(*shifted, heads), mha_bwd(*aligned, heads)):
+        torch.testing.assert_close(got, want, atol=0.0, rtol=0.0)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    """A depth over 64, and a bf16 backward at the first L whose tiles exceed a
+    block's shared memory at D 32 (kernels/attention.py:mma_refuses: L 529;
+    PR 5's kernel refused from L 385), raise instead of launching."""
+    from speech_enhancement_torch.kernels.attention import mha_bwd, mha_fwd, mma_refuses
     q = _mha_inputs(1, 1, 20, 80, torch.bfloat16, card, n=1)[0]
     with pytest.raises(RuntimeError, match="launch"):
         mha_fwd(q, q, q, 1)
-    q = _mha_inputs(1, 2, 400, 32, torch.bfloat16, card, n=1)[0]
+    longest = max(L for L in range(1, 2048) if not mma_refuses(2, 32, L, backward=True))
+    assert longest == 528
+    q = _mha_inputs(1, 2, longest + 1, 32, torch.bfloat16, card, n=1)[0]
     with pytest.raises(RuntimeError, match="launch"):
         mha_bwd(q, q, q, q, 2)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
