@@ -11,7 +11,10 @@ serving and training paths (the two block kernels and their four backward
 kernels at all twelve blocks of DCCRN; the LSTM recurrence forward at CRN's
 serving and training shapes and at rnn-stft-mask's in both directions, its
 backward at CRN's training shape, and a small f32 case with an initial
-state), then serves three 10 s requests with DCCRN at the full width of
+state; the STFT and the LSTM backward are also timed on their first
+designs in the same run, beside their bounds and library calls: ``torch.matmul``
+and cuFFT for the STFT, cuDNN's forward + backward and its backward alone
+for the LSTM), then serves three 10 s requests with DCCRN at the full width of
 ``configs/dccrn_vbd.yaml`` (bf16, random weights from a seeded
 ``torch.Generator``) through ``train/evaluate.py:evaluate_utterance``,
 twice: with the default unfused encoder/decoder, which goes through the
@@ -25,8 +28,9 @@ True`` path, and holds the two first steps against each other. Then CRN at
 the full width of ``configs/crn_vbd.yaml`` (bf16, ``fused_rnn``): three 10 s
 requests (two LSTM forward launches each) and three train steps at the
 config's operating point (B = 16 x 4 s; two forward and two backward
-launches each), each held against the same weights on the plain loop
-(``fused_rnn = False``), and a small f32 CRN on the card against the CPU
+launches each, the backward's share of a step from the profiler), each
+held against the same weights on the plain loop (``fused_rnn = False``),
+and a small f32 CRN on the card against the CPU
 path; and rnn-stft-mask at the full width of
 ``configs/rnn_stft_mask_clarity.yaml`` serving three stereo 10 s requests
 (six forward launches each, three of them reversed). Then Sepformer: both
@@ -80,7 +84,7 @@ from speech_enhancement_torch.kernels.conv_block import (fused_conv_block, fused
                                                          fused_deconv_block,
                                                          fused_deconv_block_plain)
 from speech_enhancement_torch.kernels.masking import mask_e_kernel, mask_e_plain, mask_e_ref
-from speech_enhancement_torch.kernels.stft import stft_kernel, stft_plain
+from speech_enhancement_torch.kernels.stft import stft_design, stft_kernel, stft_plain
 from speech_enhancement_torch.models import build_model
 from speech_enhancement_torch.models.dccrn import _stft_bases
 from speech_enhancement_torch.ops.stft import istft_custom, stft_custom
@@ -102,6 +106,7 @@ SECONDS = 10.0
 # a kernel's work is the larger of bytes / HBM rate and FLOPs / f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 
 # Tolerances, stated before the run:
@@ -246,9 +251,24 @@ def kernel_phase(dev) -> dict:
         fail(f"stft kernel disagrees with plain: max abs err {err}, shape {tuple(got.shape)}")
     flops = 2.0 * batch * n_frames * dim * win
     nbytes = 4.0 * (x.numel() + basis.numel() + batch * n_frames * dim)
-    bound = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    f32_bound = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    # the split-f32 design does three TF32 products for each f32 one
+    tf32_bound = max(3 * flops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    design = stft_design(batch, total, hop, win, dim)[0]
+    bound = tf32_bound if design == "tc" else f32_bound
     # one PyTorch call for the same function: matmul on the unfolded frames
     library = cuda_ms(lambda: torch.matmul(x.unfold(-1, win, hop), basis))
+    # the first design (f32 FMA) in the same run: a signal 4 bytes off a
+    # 16-byte address takes it
+    x_off = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
+    if stft_design(batch, total, hop, win, dim, aligned=False)[0] != "simt":
+        fail("stft: an unaligned signal does not take the first design")
+    first_ms = cuda_ms(lambda: stft_kernel(x_off, basis, hop, win))
+    first = stft_kernel(x_off, basis, hop, win)
+    first_err = (first - want).abs().max().item()
+    if not torch.allclose(first, want, rtol=STFT_RTOL, atol=STFT_ATOL):
+        fail(f"stft first design disagrees with plain: max abs err {first_err}")
+    del first
     # for reference, cuFFT through torch.stft on the same frames (a 512-sample
     # frame holding the 400 windowed taps, 112 zeros appended to the signal)
     window512 = torch.zeros(512, device=dev)
@@ -268,8 +288,10 @@ def kernel_phase(dev) -> dict:
         "bound_by": "operations" if flops / F32_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
         else "bytes",
         "library_ms": library, "fft_ms": fft_ms, "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+        "design": design, "split_f32_bound_ms": tf32_bound, "f32_fma_bound_ms": f32_bound,
+        "first_design_ms": first_ms, "first_design_max_abs_err": first_err,
     }
-    del x, got, want, x_fft
+    del x, got, want, x_fft, x_off
 
     # mask E: four [192, 257, 643] f32 arrays -> two
     shape = (batch, 257, n_frames)
@@ -300,6 +322,11 @@ def kernel_phase(dev) -> dict:
             f"({r['tolerance']}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             + (f"; torch.stft (cuFFT) {r['fft_ms']:.4f} ms" if "fft_ms" in r else ""))
+    r = results["stft"]
+    log(f"kernel stft: design {r['design']}; bounds: split-f32 (3 TF32 products) "
+        f"{r['split_f32_bound_ms']:.4f} ms, f32 FMA {r['f32_fma_bound_ms']:.4f} ms; the first "
+        f"design (f32 FMA) in the same run {r['first_design_ms']:.4f} ms (max abs err "
+        f"{r['first_design_max_abs_err']:.3e})")
     return results
 
 
@@ -1171,16 +1198,28 @@ def lstm_kernel_phase(dev) -> dict:
     d_last = torch.randn(batch, hidden, device=dev, generator=gen)
     zero = torch.zeros(batch, hidden, device=dev)
     bwd_args = (gates, c_seq, c_prev, dout, w_hh, zero, d_last)
+    design = lstm_k.lstm_bwd_design(bf16, hidden, batch)[0]
     got = lstm_k.lstm_bwd(*bwd_args)
     want = lstm_k.lstm_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
     rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
            for g, w in zip(got, want)]
     bwd_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-    if not max(rel) <= LSTM_BWD_RTOL:
-        fail(f"lstm_bwd disagrees with plain: dgates, dh0, dc0 {rel} of their largest "
-             f"(bound {LSTM_BWD_RTOL:g})")
-    del got, want
+    if design != "ring" or not max(rel) <= LSTM_BWD_RTOL:
+        fail(f"lstm_bwd ({design}) disagrees with plain: dgates, dh0, dc0 {rel} of their "
+             f"largest (bound {LSTM_BWD_RTOL:g})")
+    # the first design in the same run: w_hh 2 bytes off a 16-byte address
+    # takes it
+    w_off = torch.empty(w_hh.numel() + 1, device=dev, dtype=bf16)[1:].view_as(w_hh)
+    first_args = (*bwd_args[:4], w_off.copy_(w_hh), *bwd_args[5:])
+    if lstm_k.lstm_bwd_design(bf16, hidden, batch, aligned=False)[0] != "first":
+        fail("lstm_bwd: an unaligned w_hh does not take the first design")
+    first = lstm_k.lstm_bwd(*first_args)
+    first_rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                 for g, w in zip(first, want)]
+    if not max(first_rel) <= LSTM_BWD_RTOL:
+        fail(f"lstm_bwd first design disagrees with plain: {first_rel} (bound {LSTM_BWD_RTOL:g})")
+    del got, want, first
     cudnn = torch.nn.LSTM(hidden, hidden).to(dev, bf16)
     x = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16).requires_grad_()
     g_out = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16)
@@ -1188,21 +1227,36 @@ def lstm_kernel_phase(dev) -> dict:
     def cudnn_fwd_bwd():
         cudnn(x)[0].backward(g_out)
 
+    # cuDNN's backward alone: one forward, then its graph again and again
+    y = cudnn(x)[0]
+    leaves = (x, *cudnn.parameters())
+
+    def cudnn_bwd():
+        torch.autograd.grad(y, leaves, g_out, retain_graph=True)
+
     flops, nbytes = lstm_work(steps, batch, hidden, backward=True)
     bwd = {"case": "crn train", "steps": steps, "batch": batch, "hidden": hidden,
            "rel_err": rel, "max_abs_err": bwd_err,
            "ms": cuda_ms(lambda: lstm_k.lstm_bwd(*bwd_args), reps=3, warmup=1),
            "plain_ms": cuda_ms(lambda: lstm_k.lstm_bwd_plain(*bwd_args), reps=1, warmup=0),
            "library_ms": cuda_ms(cudnn_fwd_bwd, reps=3, warmup=1), "gflop": flops / 1e9,
+           "cudnn_bwd_ms": cuda_ms(cudnn_bwd, reps=3, warmup=1),
+           "design": design, "first_design_ms": cuda_ms(lambda: lstm_k.lstm_bwd(*first_args),
+                                                        reps=3, warmup=1),
+           "first_design_rel_err": first_rel,
            "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     bwd["bound_ms"] = max(bwd["flops_bound_ms"], bwd["bytes_bound_ms"])
     bwd["bound_by"] = "operations" if bwd["flops_bound_ms"] > bwd["bytes_bound_ms"] else "bytes"
-    log(f"lstm_bwd crn train: T {steps}, B {batch}, H {hidden} bf16; dgates, dh0, dc0 within "
-        f"{[f'{r:.2e}' for r in rel]} of their largest (bound {LSTM_BWD_RTOL:g}); kernel "
-        f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, cuDNN nn.LSTM forward + backward "
-        f"{bwd['library_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
-    del bwd_args, gates, c_seq, c_prev, dout, x, g_out, cudnn
+    bwd["us_per_step"] = bwd["ms"] * 1e3 / steps
+    log(f"lstm_bwd crn train: T {steps}, B {batch}, H {hidden} bf16, design {design}; dgates, "
+        f"dh0, dc0 within {[f'{r:.2e}' for r in rel]} of their largest (bound "
+        f"{LSTM_BWD_RTOL:g}); kernel {bwd['ms']:.3f} ms = {bwd['us_per_step']:.2f} us a step, "
+        f"plain {bwd['plain_ms']:.3f} ms, cuDNN nn.LSTM forward + backward "
+        f"{bwd['library_ms']:.3f} ms, cuDNN backward alone {bwd['cudnn_bwd_ms']:.3f} ms, bound "
+        f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); the first design in the same run "
+        f"{bwd['first_design_ms']:.3f} ms (within {[f'{r:.2e}' for r in first_rel]})")
+    del bwd_args, first_args, w_off, gates, c_seq, c_prev, dout, x, g_out, cudnn, y, leaves
 
     # small f32 with an initial state, both directions, forward and backward
     for reverse in (False, True):
@@ -1386,6 +1440,16 @@ def crn_train_phase(dev) -> dict:
     want.update(lstm_fwd=2 * TRAIN_STEPS, lstm_bwd=2 * TRAIN_STEPS)
     if fused["launches"] != want:
         fail(f"crn train: launches {fused['launches']}, want {want}")
+    # the backward kernel's share of a step, from the profiled step's kernels
+    bwd_ms = sum(t["ms"] for t in fused["top_kernels"] if "lstm_bwd" in t["kernel"])
+    fused["lstm_bwd_ms"] = bwd_ms
+    fused["lstm_bwd_share_of_step"] = bwd_ms / fused["median_step_ms_2_to_3"]
+    fused["lstm_bwd_share_of_busy"] = (bwd_ms / fused["device_busy_ms"]
+                                       if fused["device_busy_ms"] else None)
+    log(f"crn train: lstm_bwd (profiler) {bwd_ms:.2f} ms a step, "
+        f"{fused['lstm_bwd_share_of_step']:.3f} of the median step, "
+        + ("not measured" if fused["lstm_bwd_share_of_busy"] is None
+           else f"{fused['lstm_bwd_share_of_busy']:.3f}") + " of the device-busy time")
     plain, g_plain = train_path("crn, plain loop", dev, mixture, sources, CRN_CONFIG,
                                 fused_rnn=False)
     if any(plain["launches"].values()):

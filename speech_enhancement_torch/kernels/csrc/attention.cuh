@@ -185,38 +185,12 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, 2 ulp; ex2(-inf) = 0
   return y;
 }
 
-// -- bulk copies: one thread lands a head block in shared memory, an
-// mbarrier counts its bytes, every thread waits on the barrier's phase.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mmautil::smem_addr(bar)),
-               "r"(1u)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   mmautil::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(mmautil::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(mmautil::smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(mmautil::smem_addr(bar)), "r"(parity)
-        : "memory");
-}
+// -- bulk copies (mma_util.cuh): one thread lands a head block in shared
+// memory, an mbarrier counts its bytes, every thread waits on its phase.
+using mmautil::bulk_copy;
+using mmautil::mbar_expect;
+using mmautil::mbar_init;
+using mmautil::mbar_wait;
 
 // Asks L2 for the 128-byte lines of n bf16 elements at p (every line holds
 // one of them), one line a thread at a time.

@@ -24,10 +24,12 @@
 // A grid-wide barrier (grid_sync: an arrival counter and a generation word
 // in device memory, __threadfence() before arriving and after leaving)
 // separates the steps that exchange data between blocks.
-// The forward's bf16 path with 16-byte rows does not use gemm_chunk: it
+// The bf16 paths with 16-byte rows do not use gemm_chunk: the forward
 // streams h_prev through a cp.async ring and runs its gate math from the
-// mma registers (lstm_fwd.cu, lstm_fwd_ring); it shares the grid barrier,
-// the unit split and the cooperative launch below.
+// mma registers (lstm_fwd.cu, lstm_fwd_ring), the backward streams each
+// warp's K range of dgates through a ring of its own and keeps dh and dc in
+// registers (lstm_bwd.cu, lstm_bwd_ring); both share the grid barrier, the
+// unit split and the cooperative launch below.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -240,35 +240,9 @@ inline bool make_plan(int units, int hidden, int batch, int smem_limit, Plan& p)
   return true;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared through L2 only (cp.async.cg: the
-// sequence tensors are written by other blocks during the launch, so no L1
-// line may serve them); zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p)));
-}
+using mmautil::cp_async16;
+using mmautil::cp_async_commit;
+using mmautil::cp_async_wait;
 
 // One k16 step's fragments of a warp: A for its MT row tiles, B for its
 // NTW column tiles.
@@ -279,15 +253,19 @@ template <int MT, int NTW> struct Frags {
   __device__ __forceinline__ void load(const bf16* ws, const int* a_off, const bf16* slab,
                                        const int* b_off, int k_slice, int k_slab, int nv) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
-      ldsm_x4(a[m][0], a[m][1], a[m][2], a[m][3], ws + a_off[m] + k_slice);
+    for (int m = 0; m < MT; ++m) mmautil::ldsm_x4(a[m], ws + a_off[m] + k_slice);
 #pragma unroll
     for (int jp = 0; jp < (NTW + 1) / 2; ++jp) {
       const bf16* src = slab + b_off[jp] + k_slab;
       if (2 * jp + 1 < NTW && 2 * jp + 1 < nv) {
-        ldsm_x4(b[2 * jp][0], b[2 * jp][1], b[2 * jp + 1][0], b[2 * jp + 1][1], src);
+        uint32_t r[4];
+        mmautil::ldsm_x4(r, src);
+        b[2 * jp][0] = r[0];
+        b[2 * jp][1] = r[1];
+        b[2 * jp + 1][0] = r[2];
+        b[2 * jp + 1][1] = r[3];
       } else if (2 * jp < nv) {
-        ldsm_x2(b[2 * jp][0], b[2 * jp][1], src);
+        mmautil::ldsm_x2(b[2 * jp], src);
       }
     }
   }

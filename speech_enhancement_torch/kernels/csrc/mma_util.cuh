@@ -1,7 +1,8 @@
-// Staging and fragment helpers shared by the bf16 kernels on Hopper
-// (sm_90a): dw_gemm.cuh (the fused blocks' weight gradients),
-// block_mma.cuh (the block kernels and their input gradients) and
-// attention.cuh (the attention kernels).
+// Staging and fragment helpers shared by the kernels on Hopper (sm_90a):
+// dw_gemm.cuh (the fused blocks' weight gradients), block_mma.cuh (the block
+// kernels and their input gradients), attention.cuh (the attention kernels),
+// the LSTM kernels' rings (lstm_fwd.cu, lstm_bwd.cu) and the split-f32 STFT
+// (stft.cu).
 //
 // - mma.sync m16n8k16 (bf16 in, f32 accumulate); ldmatrix fragments, also
 //   transposed (.trans: the operand stored with k along its rows), the
@@ -12,7 +13,9 @@
 //   16-byte word out of two such chunks: T = 643 frames is odd, so the rows
 //   of an activation start at every residue;
 // - zeroing the realigned frames that fall outside [0, T);
-// - cp.async copies of 16-byte chunks straight into shared memory.
+// - cp.async copies of 16-byte chunks straight into shared memory, also
+//   zero-filled;
+// - bulk copies (cp.async.bulk) whose bytes an mbarrier counts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,9 +133,52 @@ __device__ __forceinline__ uint4 mask_frames(uint4 v, int f0, int n) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// The same, zero-filled when !ok (src is then not read, but must be a valid
+// address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's commit groups are still in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
+// Bulk copies: one thread lands a block of bytes in shared memory, an
+// mbarrier counts them, every thread waits on the barrier's phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
 }
 
 }  // namespace mmautil

@@ -15,7 +15,11 @@ Counterpart of speech_enhancement_tpu/ops/pallas/lstm.py (``fused_lstm``,
 ``lstm_fwd`` launches ``csrc/lstm_fwd.cu`` for CUDA tensors (one launch for
 all T steps, counted in ``lstm_fwd.launches``) and runs
 :func:`fused_lstm_plain` for CPU tensors; ``lstm_bwd`` does the same with
-``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Any other device raises,
+``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Each kernel has two
+designs, which the C code picks from the shapes: a ring path for bf16 with
+16-byte rows and the first design for the rest; :func:`bwd_ring_plan`
+mirrors the backward's choice and plan, and :func:`lstm_bwd_design` asks
+the built library for them. Any other device raises,
 and there is no fallback from a kernel to its plain version: a width whose
 weight slice does not fit the cooperative grid raises. The kernel sources
 say what bounds them and how the weights stay resident.
@@ -97,7 +101,79 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "lstm_fwd": ("lstm_fwd", [_I] + [_P] * 8 + [_I] * 4 + [_P]),
     "lstm_bwd": ("lstm_bwd", [_I] + [_P] * 9 + [_I] * 4 + [_P]),
+    "lstm_bwd_plan": ("lstm_bwd", [_I] * 4 + [_P]),
 }
+
+# csrc/lstm_bwd.cu, namespace ring
+_RING_KCS, _RING_MIN_STAGES, _RING_MAX_STAGES, _RING_MAX_MW = (64, 32, 16), 3, 8, 4
+_RING_PART_PITCH, _RING_ROUND_K, _RING_CHUNK_K = 24, 32, 256
+_RING_FIELDS = ("units", "nt", "kc", "kr", "pitch", "stages", "wm", "wk", "mw", "nb", "chunks",
+                "rpw", "region", "ring_offset", "ppt", "smem_bytes")
+
+
+def bwd_ring_plan(units: int, hidden: int, batch: int, smem_limit: int):
+    """``ring::make_plan`` of ``csrc/lstm_bwd.cu``, line for line: the bf16
+    backward's ring plan for ``units`` hidden units a block, or None where
+    the kernel takes the first design (no ring fits beside the slice, or
+    more than 16 x 256 (b, u) pairs a block). Change both together."""
+    if units <= 0 or units > 16:
+        return None
+    pairs = batch * units
+    ppt = 1 if pairs <= 256 else 4 if pairs <= 4 * 256 else 16 if pairs <= 16 * 256 else 0
+    if ppt == 0:
+        return None
+    k = 4 * hidden
+    best, best_cost, best_flight = None, 0, 0
+    for kc in _RING_KCS:
+        kr = -(-k // kc)
+        pitch = kr * kc + 8
+        ring_offset = -(-units * pitch * 2 // 16) * 16
+        region_max = (smem_limit - ring_offset) // 8 // 16 * 16
+        wm = 1
+        while wm <= 8:
+            wk = 8 // wm
+            for mw in range(1, _RING_MAX_MW + 1):
+                slab = mw * 16 * kc * 2
+                part = mw * 16 * _RING_PART_PITCH * 4
+                stages = min(region_max // slab, _RING_MAX_STAGES)
+                if stages < _RING_MIN_STAGES:
+                    continue
+                region = max(stages * slab, part)
+                if region > region_max:
+                    continue
+                nb = wm * mw * 16
+                chunks = -(-batch // nb)
+                rpw = -(-kr // wk)
+                cost = chunks * (mw * rpw * (kc + _RING_ROUND_K) + _RING_CHUNK_K)
+                flight = (stages - 1) * slab
+                if best_cost > 0 and (cost > best_cost
+                                      or (cost == best_cost and flight <= best_flight)):
+                    continue
+                best_cost, best_flight = cost, flight
+                best = {"units": units, "nt": 2 if units > 8 else 1, "kc": kc, "kr": kr,
+                        "pitch": pitch, "stages": stages, "wm": wm, "wk": wk, "mw": mw,
+                        "nb": nb, "chunks": chunks, "rpw": rpw, "slab_bytes": slab,
+                        "region": region, "ring_offset": ring_offset, "ppt": ppt,
+                        "smem_bytes": ring_offset + 8 * region}
+            wm *= 2
+    return best
+
+
+def lstm_bwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool = True):
+    """("ring", plan) or ("first", None): the design ``csrc/lstm_bwd.cu``
+    takes on the current card for these shapes (``aligned``: dgates and
+    w_hh at 16-byte addresses), as its ``lstm_bwd_plan`` entry reports;
+    raises for a width whose grid does not fit. Needs a card."""
+    out = (ctypes.c_int * 17)()
+    code = _entry("lstm_bwd_plan")(int(dtype == torch.bfloat16), hidden, batch, int(aligned),
+                                   ctypes.addressof(out))
+    _build.check(_build.library("lstm_bwd"), code, "lstm_bwd_plan")
+    if out[0] < 0:
+        raise RuntimeError(f"lstm_bwd: H {hidden} needs more than 16 units a block (cooperative "
+                           "grid does not fit)")
+    if out[0] == 0:
+        return "first", None
+    return "ring", dict(zip(_RING_FIELDS, out[1:]))
 
 
 @functools.cache

@@ -55,6 +55,30 @@ def test_stft_kernel_matches_plain(card, total):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)  # tests/test_pallas.py:22
 
 
+# (B, T): the split-f32 kernel (stft_tf32x3) at one DCCRN window (B 1: one
+# batch item a block), a ragged last row tile whose block crosses two batch
+# items (67 frames an item: three pieces in a block), 643-frame items with a
+# block across two of them; T % 4 != 0 takes the first design
+@pytest.mark.parametrize("batch,total,design", [(1, 64600, "tc"), (3, 7000, "tc"),
+                                                (5, 64600, "tc"), (3, 7002, "simt")])
+def test_stft_kernel_designs_match_plain(card, batch, total, design):
+    from speech_enhancement_torch.kernels.stft import stft_design, tc_plan
+    basis = torch.from_numpy(_stft_bases(400, 512)[0]).to(card)
+    x = _randn((batch, total), total + batch, card)
+    before = stft_kernel.launches
+    got = stft_kernel(x, basis, 100, 400)
+    want = stft_plain(x, basis, 100, 400)
+    torch.cuda.synchronize()
+    assert stft_kernel.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)  # tests/test_pallas.py:22
+    taken, plan = stft_design(batch, total, 100, 400, basis.shape[1])
+    assert taken == design
+    if design == "tc":
+        assert plan == tc_plan(batch, total, 100, 400, basis.shape[1],
+                               smem_limit=_card_plan_args(card)[1])
+    assert stft_design(batch, total, 100, 400, basis.shape[1], aligned=False)[0] == "simt"
+
+
 @pytest.mark.parametrize("shape", [(4, 257, 643), (1, 3, 5)])  # second: n % 4 != 0
 def test_mask_e_kernel_matches_plain(card, shape):
     arrays = [_randn(shape, seed, card) for seed in range(4)]
@@ -650,6 +674,62 @@ def test_lstm_bwd_kernel_matches_plain(card, shape, reverse, dtype):
         scale = w.float().abs().max().item()
         torch.testing.assert_close(g.float(), w.float(), rtol=LSTM_TOL[dtype],
                                    atol=LSTM_TOL[dtype] * scale, msg=name)
+
+
+def _card_plan_args(card):
+    props = torch.cuda.get_device_properties(card)
+    return props.multi_processor_count, getattr(props, "shared_memory_per_block_optin", 232448)
+
+
+def _check_lstm_bwd(card, shape, reverse, dtype):
+    """lstm_bwd against lstm_bwd_plain on one forward's outputs, launched
+    once; returns the design the library reports for the shape."""
+    from speech_enhancement_torch.kernels.lstm import (fused_lstm_plain, lstm_bwd,
+                                                       lstm_bwd_design, lstm_bwd_plain,
+                                                       shift_prev)
+    steps, batch, hidden = shape
+    x_proj, w_hh, h0, c0 = _lstm_inputs(*shape, dtype, card, seed=sum(shape) + 2)
+    _, c_seq, gates = fused_lstm_plain(x_proj, w_hh, h0, c0, reverse)
+    c_prev = shift_prev(c_seq, c0, reverse)
+    rng = np.random.default_rng(sum(shape))
+    dout = torch.from_numpy(rng.standard_normal(c_seq.shape).astype(np.float32)).to(card, dtype)
+    dh_t, dc_t = (torch.from_numpy(rng.standard_normal(h0.shape).astype(np.float32)).to(card)
+                  for _ in range(2))
+    before = lstm_bwd.launches
+    got = lstm_bwd(gates, c_seq, c_prev, dout, w_hh, dh_t, dc_t, reverse)
+    want = lstm_bwd_plain(gates, c_seq, c_prev, dout, w_hh, dh_t, dc_t, reverse)
+    torch.cuda.synchronize()
+    assert lstm_bwd.launches == before + 1
+    for g, w, name in zip(got, want, ("dgates", "dh0", "dc0")):
+        assert g.shape == w.shape
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=LSTM_TOL[dtype],
+                                   atol=LSTM_TOL[dtype] * scale, msg=name)
+    return lstm_bwd_design(dtype, hidden, batch)
+
+
+# bf16 rows of 16 bytes take the backward's ring (lstm_bwd_ring): B 1 and 5
+# (one m16 tile, mostly zero-filled), 16 (CRN's train batch: one tile
+# exactly), 24 and 70 (several tiles: warps along the batch, four pairs a
+# thread), at CRN's H 1792 (U 14), rnn-stft-mask's 896 (U 7: one n8 tile)
+# and 1790 (a last block of 12 units)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden", [1792, 896, 1790])
+@pytest.mark.parametrize("batch", [1, 5, 16, 24, 70])
+def test_lstm_bwd_ring_matches_plain(card, batch, hidden, reverse):
+    from speech_enhancement_torch.kernels.lstm import bwd_ring_plan
+    design, plan = _check_lstm_bwd(card, (4, batch, hidden), reverse, torch.bfloat16)
+    sms, optin = _card_plan_args(card)
+    want = bwd_ring_plan(-(-hidden // sms), hidden, batch, optin)
+    assert design == "ring" and plan == {k: want[k] for k in plan}
+
+
+# the first design: f32, and bf16 rows that are not 16 bytes (4H % 8 != 0)
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (5, 16, 256)),
+                                         (torch.bfloat16, (5, 16, 133)),
+                                         (torch.bfloat16, (3, 5, 1795))])
+def test_lstm_bwd_first_design_stays(card, dtype, shape):
+    assert _check_lstm_bwd(card, shape, True, dtype) == ("first", None)
 
 
 def test_fused_lstm_gradients_on_card_match_cpu(card):
