@@ -45,8 +45,13 @@ held against the same weights on flax's attention (``fused_attention =
 False``); the serving split also times the copies around one intra and one
 inter attention layer (the wrapper's ``.contiguous()`` of q, k and v, the
 transposed output), and the build's report gives every attention kernel
-variant's registers and spills. Each phase's seconds and the total are
-logged. It imports nothing of JAX.
+variant's registers and spills. Last, the ``cli`` phase runs the
+system's own entry point, ``speech_enhancement_torch.main.main``, on
+synthetic data: DCCRN at full width trains two epochs, checkpoints, is
+resumed and scores a test set (SI-SDR, STOI, PESQ), Sepformer trains and
+tests on Clarity scenes, and ``python -m speech_enhancement_torch --mode
+validation`` runs in a subprocess (``cli_phase``). Each phase's seconds
+and the total are logged. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
@@ -76,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_enhancement_torch.config import Config, load_config
+from speech_enhancement_torch.data.loader import encode_wire_int16
 from speech_enhancement_torch.kernels import _build
 from speech_enhancement_torch.kernels import attention as attn_k
 from speech_enhancement_torch.kernels import conv_block as cb
@@ -668,14 +674,6 @@ def grad_phase(dev) -> dict:
         f"vs pole-free plain {err_mask:.2e} of the largest gradient (bound 1e-5; the mask "
         f"is zero on 8 of 257 bins, gradients finite)")
     return {"stft_grad_err": err_stft, "mask_e_grad_err": err_mask}
-
-
-def encode_wire_int16(arr: np.ndarray) -> dict:
-    """f32 [..., L] -> the int16 wire {"q", "scale" [..., 1]}, as the JAX
-    package's data/loader.py:encode_wire_int16 (peak-scaled per row)."""
-    peak = np.max(np.abs(arr), axis=-1, keepdims=True)
-    scale = (np.maximum(peak, 1e-9) / 32767.0).astype(np.float32)
-    return {"q": np.round(arr / scale).astype(np.int16), "scale": scale}
 
 
 def train_batch(sample_rate: int):
@@ -1875,6 +1873,228 @@ def sepformer_reference_phase(dev) -> dict:
             "worst_leaf_err": worst[top]}
 
 
+# -- the system's own entry point: data layer, Solver and CLI ----------------
+
+CLI_UTTERANCES = 184  # 4 to 10 s each: 128 train (8 steps of 16), 27 val, 29 test
+CLI_SCENES = 12       # Clarity scenes of 4 s: 8 train (2 steps of 4), 1 val, 3 test
+
+
+def cli_config(path, tmp, data_root, **solver):
+    """The config at ``path`` pointed at a fixture under ``tmp``, with the
+    solver overrides ``solver`` (dotted keys into solver.validation/test)."""
+    cfg = load_config(path)
+    cfg.dset.wav = data_root
+    cfg.solver.root = os.path.join(tmp, "runs")
+    for key, value in solver.items():
+        section, _, field = key.rpartition(".")
+        target = cfg.solver if not section else cfg.solver[section]
+        target[field] = value
+    return cfg
+
+
+def cli_phase(dev) -> dict:
+    """The port's ``main()`` in this process (so the launch counters can be
+    read) on fixtures from its own ``data/synthetic.py``, in a temporary
+    directory:
+
+    DCCRN at the full width of configs/dccrn_vbd.yaml (bf16, si-sdr, batch
+    16, the unfused path: STFT and mask-E kernels) on 184
+    VoiceBank-DEMAND-like utterances of 4 to 10 s, split 0.7 / 0.15 / 0.15:
+    two epochs of 8 steps with 4 validation batches, then ``--mode test
+    --save`` resumed from that run dir on 6 utterances with SI-SDR, STOI and
+    PESQ. Checks every artifact, finite losses, both kernels launched in
+    both modes, and one enhanced wav against ``evaluate_utterance`` on the
+    resumed model. Times a Solver step against a bare ``train_step`` on
+    one of its batches, and takes the device-busy share of one more
+    training epoch.
+
+    Sepformer at the full width of configs/sepformer_clarity.yaml (batch 4,
+    two speakers, si-sdr with PIT) on Clarity scenes of 4 s: one epoch of 2
+    steps and a test pass of 2 scenes; both attention kernels must launch.
+
+    Then ``python -m speech_enhancement_torch --mode validation`` in a
+    subprocess on the DCCRN run; it must exit 0 and print its loss."""
+    import shutil
+    import tempfile
+
+    from speech_enhancement_torch.config import save_yaml
+    from speech_enhancement_torch.data.synthetic import make_clarity, make_voicebank_demand
+    from speech_enhancement_torch.data.wav_io import read_wav
+    from speech_enhancement_torch.main import main as port_main
+    from speech_enhancement_torch.train import metrics as metrics_lib
+
+    tmp = tempfile.mkdtemp(prefix="se_torch_cli_")
+    seconds, peaks = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds and peak device memory of the part since the last lap."""
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        clock[0] = now
+
+    try:
+        vbd = make_voicebank_demand(os.path.join(tmp, "vbd"), n_utterances=CLI_UTTERANCES,
+                                    min_seconds=4.0, max_seconds=10.0, seed=SEED)
+        clarity = make_clarity(os.path.join(tmp, "clarity"), n_scenes=CLI_SCENES, seconds=4.0,
+                               seed=SEED)
+        cfg = cli_config(CONFIG, tmp, vbd, epochs=2, all_steps=False, total_steps=8,
+                         **{"validation.total_steps": 4, "test.total_steps": 6,
+                            "test.metrics": ["sisdr", "stoi", "pesq"], "test.num_show": 0})
+        cfg.dset.split = [0.7, 0.15, 0.15]
+        lap("fixtures")
+
+        reset_launches()
+        train_dir = os.path.join(tmp, "dccrn_train")
+        solver = port_main(cfg, mode="train", return_solver=True, run_dir=train_dir)
+        train_launches = read_launches()
+        scores, stats = solver.scores, solver.epoch_stats
+        losses = scores["train_loss"] + scores["val_loss"]
+        if len(scores["train_loss"]) != 2 or not np.isfinite(losses).all():
+            fail(f"cli: DCCRN train losses {scores}")
+        if [e["train_steps"] for e in stats] != [8, 8]:
+            fail(f"cli: DCCRN train steps {[e['train_steps'] for e in stats]}, want 8 a epoch")
+        files = os.listdir(solver.checkpoint_dir)
+        if not ({"latest_model.ckpt", "best_model.ckpt", "state.json"} <= set(files)
+                and any(f.startswith("model_") for f in files)):
+            fail(f"cli: DCCRN checkpoints {files}")
+        if min(train_launches["stft"], train_launches["mask_e"]) == 0:
+            fail(f"cli: DCCRN training did not launch the STFT and mask-E kernels: "
+                 f"{train_launches}")
+        solver_step_ms = 1e3 * stats[1]["train_s"] / stats[1]["train_steps"]
+        lap("dccrn_train")
+
+        # the bare train_step on one of the loader's batches, same model
+        batch = next(iter(solver.train_loader))
+        bare = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _ = train_step(solver.model, solver.spec, solver.optimizer, batch["mixture"],
+                                 batch["sources"], solver.loss_name, device=dev)
+            float(loss)
+            bare.append(1e3 * (time.perf_counter() - t))
+        bare_ms = statistics.median(bare[1:])
+        lap("dccrn_bare_steps")
+        # the profiler's bookkeeping of some 185,000 launches a step costs
+        # minutes over a whole epoch: the profiled epoch is capped at 2
+        # steps, and its busy time is set against 2 steps of epoch 1
+        solver.config.solver.total_steps = 2
+        busy_ms, top = device_busy(lambda: solver._run_one_epoch(2, train=True))
+        epoch_ms = solver._epoch_steps * solver_step_ms
+        lap("dccrn_profiled_epoch")
+
+        reset_launches()
+        cfg.solver.resume = train_dir
+        test_dir = os.path.join(tmp, "dccrn_test")
+        tester = port_main(cfg, mode="test", return_solver=True, save=True, run_dir=test_dir)
+        test_launches = read_launches()
+        if min(test_launches["stft"], test_launches["mask_e"]) == 0:
+            fail(f"cli: DCCRN test did not launch the STFT and mask-E kernels: {test_launches}")
+        with open(os.path.join(test_dir, "results.csv")) as handle:
+            rows = handle.read().strip().splitlines()[1:]
+        with open(os.path.join(test_dir, "test_summary.json")) as handle:
+            summary = json.load(handle)
+        wavs = sorted(os.listdir(os.path.join(test_dir, "enhanced")))
+        if len(rows) != 6 or len(wavs) != 6 or sorted(summary["enhanced"]) != [
+                "pesq", "sisdr", "stoi"] or not all(
+                np.isfinite(v) for side in summary.values() for v in side.values()):
+            fail(f"cli: DCCRN test artifacts: {len(rows)} rows, {len(wavs)} wavs, {summary}")
+        item = tester.test_loader.dataset[0]
+        saved, _ = read_wav(os.path.join(test_dir, "enhanced", f"{item['name']}.wav"))
+        direct = evaluate_utterance(item["mixture"][None], tester.model, tester.spec, cfg,
+                                    device=dev)[0]
+        wav_agreement = agree([saved], [direct], "cli: saved wav vs evaluate_utterance")[0]
+        timing = tester.test_timing
+        pesq_impl = metrics_lib.pesq_backend()[2]
+        lap("dccrn_test")
+
+        t = time.perf_counter()
+        yaml_path = os.path.join(tmp, "dccrn_cli.yaml")
+        save_yaml(cfg, yaml_path)
+        proc = subprocess.run(
+            [sys.executable, "-m", "speech_enhancement_torch", "--config", yaml_path,
+             "--mode", "validation", "--run-dir", os.path.join(tmp, "dccrn_cli")],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t
+        found = re.search(r"validation loss=(\S+)", proc.stdout)
+        if proc.returncode != 0 or not found or not np.isfinite(float(found.group(1))):
+            fail(f"cli: python -m speech_enhancement_torch --mode validation exited "
+                 f"{proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+        cli_loss = float(found.group(1))
+        lap("cli_subprocess")
+
+        reset_launches()
+        sep_cfg = cli_config(SEP_CONFIG, tmp, clarity, epochs=1, all_steps=False, total_steps=2,
+                             **{"validation.total_steps": 1, "test.total_steps": 2,
+                                "test.metrics": ["sisdr", "stoi"], "test.num_show": 0})
+        sep_cfg.dset.split = [0.7, 0.1, 0.2]
+        sep = port_main(sep_cfg, mode="train", return_solver=True,
+                        run_dir=os.path.join(tmp, "sep"))
+        sep_train_launches = read_launches()
+        reset_launches()
+        sep_summary = sep.inference()
+        sep_test_launches = read_launches()
+        sep_losses = sep.scores["train_loss"] + sep.scores["val_loss"]
+        if (not sep.use_pit or sep.epoch_stats[0]["train_steps"] != 2
+                or not np.isfinite(sep_losses).all() or sep.test_timing["utterances"] != 2
+                or not np.isfinite(sep_summary["enhanced"]["sisdr"])):
+            fail(f"cli: Sepformer run: pit {sep.use_pit}, {sep.epoch_stats}, {sep.scores}, "
+                 f"{sep_summary}")
+        if min(sep_train_launches["mha_fwd"], sep_train_launches["mha_bwd"],
+               sep_test_launches["mha_fwd"]) == 0:
+            fail(f"cli: Sepformer did not launch the attention kernels: train "
+                 f"{sep_train_launches}, test {sep_test_launches}")
+        lap("sepformer")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    share = busy_ms / epoch_ms if busy_ms else None
+    result = {
+        "seconds": seconds, "peak_mem_gib": peaks, "dccrn_epoch_wall_s": scores["epoch_wall_s"],
+        "dccrn_epoch_stats": stats, "dccrn_solver_step_ms": solver_step_ms,
+        "dccrn_bare_step_ms": bare, "dccrn_train_losses": scores,
+        "dccrn_epoch_device_busy_ms": busy_ms, "dccrn_epoch_device_busy_share": share,
+        "dccrn_test_timing": timing, "dccrn_test_summary": summary, "pesq": pesq_impl,
+        "wav_agreement": wav_agreement, "cli_validation_loss": cli_loss, "cli_s": cli_s,
+        "launches": {"train": train_launches, "test": test_launches,
+                     "sepformer_train": sep_train_launches, "sepformer_test": sep_test_launches},
+        "sepformer_epoch_stats": sep.epoch_stats, "sepformer_test_timing": sep.test_timing,
+    }
+    log(f"cli: fixtures ({CLI_UTTERANCES} utterances of 4 to 10 s, {CLI_SCENES} Clarity scenes "
+        f"of 4 s); seconds by part {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"peak GiB by part {json.dumps({k: round(v, 2) for k, v in peaks.items()})}")
+    log(f"cli: DCCRN (configs/dccrn_vbd.yaml, bf16, si-sdr, B 16) train losses "
+        f"{scores['train_loss']}, val {scores['val_loss']}; epoch wall s "
+        f"{scores['epoch_wall_s']} (epoch 0 warms up); epoch 1: 8 steps in "
+        f"{stats[1]['train_s']:.3f} s, validation {stats[1]['val_s']:.3f} s")
+    log(f"cli: DCCRN Solver {solver_step_ms:.1f} ms a train step (epoch 1, loader and Solver "
+        f"included) vs bare train_step {bare_ms:.1f} ms on one of its batches (calls "
+        f"{[round(x, 1) for x in bare]}; the train phase's bare step is at B 128); one more "
+        f"training epoch of 2 steps device busy {busy_ms:.1f} ms of {epoch_ms:.1f} "
+        f"({'not measured' if share is None else f'{share:.3f}'}); top kernels "
+        + "; ".join(f"{t['kernel']} {t['ms']:.1f} ms x{t['count']}" for t in top[:5]))
+    per_utt = {k: timing[k] / timing["utterances"] for k in ("wall_s", "device_s", "scoring_s")}
+    log(f"cli: DCCRN test (resumed, --save): {timing['utterances']} utterances in "
+        f"{timing['wall_s']:.3f} s = {per_utt['wall_s']:.3f} s each: evaluate_utterance "
+        f"(device, host clock ending in the fetch) {per_utt['device_s']:.3f} s, host scoring "
+        f"(SI-SDR, STOI, PESQ of enhanced and mixture, two threads) {per_utt['scoring_s']:.3f} "
+        f"s; PESQ implementation {pesq_impl}; summary {summary}")
+    log(f"cli: saved wav vs evaluate_utterance on the resumed model {wav_agreement}; launches "
+        f"train {train_launches['stft']} stft + {train_launches['mask_e']} mask_e, test "
+        f"{test_launches['stft']} + {test_launches['mask_e']}")
+    log(f"cli: python -m speech_enhancement_torch --mode validation: exit 0, validation loss "
+        f"{cli_loss:.5f}, {cli_s:.1f} s (a new process: CUDA start, model build, 4 batches)")
+    log(f"cli: Sepformer (configs/sepformer_clarity.yaml, B 4, PIT) train losses "
+        f"{sep.scores['train_loss']}, val {sep.scores['val_loss']}; {sep.epoch_stats}; test "
+        f"{sep.test_timing}; mha launches train {sep_train_launches['mha_fwd']} + "
+        f"{sep_train_launches['mha_bwd']}, test {sep_test_launches['mha_fwd']}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is False; this smoke test needs a CUDA card")
@@ -1928,6 +2148,7 @@ def main() -> int:
     phase("rnn_stft_mask_slice", rnn_stft_mask_slice_phase, dev)
     sep = phase("sepformer_slice", sepformer_slice_phase, dev)
     sep_train = phase("sepformer_train", sepformer_train_phase, dev)
+    phase("cli", cli_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that is its own: the unfused serve

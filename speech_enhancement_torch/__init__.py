@@ -6,12 +6,14 @@ imports JAX or anything from the JAX package. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``; they raise when CUDA is
 asked for and absent (see ``device.resolve_device``).
 
-Ported so far (DCCRN inference through ``train/evaluate.py`` and its train
-step through ``train/solver.py``): ``config``, ``models.types``,
-``ops.frame``, ``ops.complex_ops``, ``ops.complex_conv``, ``ops.rnn``,
-``models.dccrn``, ``compat.jax_weights``, ``train.evaluate``,
-``train.losses``, ``train.solver``, and the hand-written CUDA kernels under
-``kernels/``.
+Ported so far: DCCRN, CRN, the RNN STFT-mask separator and Sepformer
+(``models``, ``ops``, ``compat.jax_weights``) with the hand-written CUDA
+kernels under ``kernels/``; the host data layer (``data``, ``utils``,
+``config``); the engine (``train.solver.Solver``, ``train.evaluate``,
+``train.losses``, ``train.metrics``, ``train.checkpoints``); and the entry
+point ``main.main`` with its command line::
+
+    python -m speech_enhancement_torch --config configs/dccrn_vbd.yaml --mode train
 """
 
 from speech_enhancement_torch.device import resolve_device
