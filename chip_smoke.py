@@ -45,13 +45,27 @@ held against the same weights on flax's attention (``fused_attention =
 False``); the serving split also times the copies around one intra and one
 inter attention layer (the wrapper's ``.contiguous()`` of q, k and v, the
 transposed output), and the build's report gives every attention kernel
-variant's registers and spills. Last, the ``cli`` phase runs the
-system's own entry point, ``speech_enhancement_torch.main.main``, on
-synthetic data: DCCRN at full width trains two epochs, checkpoints, is
-resumed and scores a test set (SI-SDR, STOI, PESQ), Sepformer trains and
-tests on Clarity scenes, and ``python -m speech_enhancement_torch --mode
-validation`` runs in a subprocess (``cli_phase``). Each phase's seconds
-and the total are logged. It imports nothing of JAX.
+variant's registers and spills. Then the recurrent slice: mel-rnn at the
+full width of ``configs/mel_rnn_vbd.yaml`` (f32, ``fused_rnn``) serving
+three 10 s requests against the plain loop within F32_ATOL, served once
+each with GRU and vanilla-RNN stacks, and three train steps at B 16 held
+against the plain loop (``mel_rnn_phase``); rnn-stft-mask training at its
+config's operating point (B 8 stereo, two speakers, PIT), with drop_out 0
+against the plain loop and with the config's drop_out 0.5
+(``rnn_stft_mask_train_phase``); Sepformer train steps with RelPosMHAXL,
+with RNN intra / inter blocks and with remat against remat off
+(``sepformer_options_phase``); DCCRN with ``use_clstm = False`` served and
+trained on both execution paths and a small f32 one on the card against
+the CPU (``dccrn_real_lstm_phase``); the LSTM kernel phase holds both
+kernels at those paths' shapes too (mel-rnn's f32 H 256 and rnn-stft-mask
+training's bf16 H 896 at B 16, both directions). Last, the ``cli`` phase
+runs the system's own entry point, ``speech_enhancement_torch.main.main``,
+on synthetic data: DCCRN at full width trains two epochs, checkpoints, is
+resumed and scores a test set (SI-SDR, STOI, PESQ), mel-rnn trains two
+epochs and tests resumed, Sepformer trains and tests on Clarity scenes,
+and ``python -m speech_enhancement_torch --mode validation`` runs in a
+subprocess (``cli_phase``). Each phase's seconds and the total are
+logged. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
@@ -59,8 +73,8 @@ against the plain version, kernel / plain / library times and the least
 time the card could take; for the block kernels and their backward kernels
 each time is the sum over the model's six blocks of that kind, one launch
 each, and the error the largest of the six; the LSTM kernels' at one CRN
-layer; the attention kernels' at one intra-chunk layer), and as the last
-line
+layer, with every other shape's numbers under ``cases``; the attention
+kernels' at one intra-chunk layer), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line is printed; so does a host without CUDA.
 """
@@ -97,8 +111,8 @@ from speech_enhancement_torch.ops.stft import istft_custom, stft_custom
 from speech_enhancement_torch.ops.complex_conv import (complex_cat, conv_from_hwio,
                                                        deconv_from_hwio)
 from speech_enhancement_torch.train.evaluate import evaluate_utterance, extract_windows
-from speech_enhancement_torch.train.solver import (compute_loss, decode_wire, get_optimizer,
-                                                   train_step)
+from speech_enhancement_torch.train.solver import (adapt, compute_loss, decode_wire,
+                                                   get_optimizer, train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "dccrn_vbd.yaml")
@@ -691,10 +705,11 @@ def flat_grads(model) -> torch.Tensor:
 
 
 def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRAIN_OPTIM,
-               **overrides) -> dict:
-    """TRAIN_STEPS steps of train_step with the config at ``path`` at full
-    width (PIT over the speakers of a multi-speaker model); then one step
-    split by CUDA events and one under the profiler."""
+               steps=TRAIN_STEPS, detail=True, falling=True, **overrides) -> dict:
+    """``steps`` steps of train_step with the config at ``path`` at full
+    width (PIT over the speakers of a multi-speaker model), the loss
+    falling step to step unless ``falling`` is off (dropout); then, with
+    ``detail``, one step split by CUDA events and one under the profiler."""
     cfg, model, spec = load_model(dev, path, **overrides)
     opt = get_optimizer(Config(optim), model.parameters())
     model_config = cfg.model if spec.domain == "stft" else None
@@ -704,7 +719,7 @@ def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRA
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, norms, times, first_grads = [], [], [], None
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, norm = step_fn()
@@ -717,14 +732,26 @@ def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRA
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if not all(np.isfinite(losses + norms)):
         fail(f"{tag} train: non-finite loss or grad norm {losses} {norms}")
-    if not all(a > b for a, b in zip(losses, losses[1:])):
-        fail(f"{tag} train: the loss does not fall over {TRAIN_STEPS} steps: {losses}")
-    step_ms = 1e3 * statistics.median(times[1:])
+    if falling and not all(a > b for a, b in zip(losses, losses[1:])):
+        fail(f"{tag} train: the loss does not fall over {steps} steps: {losses}")
+    step_ms = 1e3 * statistics.median(times[1:] or times)
+    batch = (wire_m["q"] if isinstance(wire_m, dict) else wire_m).shape[0]
+    result = {"config": os.path.relpath(path, ROOT), "overrides": overrides, "batch": batch,
+              "seconds": TRAIN_SECONDS, "losses": losses, "grad_norms": norms,
+              "step_ms": [1e3 * t for t in times], "median_step_ms_2_to_3": step_ms,
+              "utt_per_s": batch / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+              "launches": launches, "reverse_launches": {
+                  "lstm_fwd": lstm_k.lstm_fwd.reverse_launches,
+                  "lstm_bwd": lstm_k.lstm_bwd.reverse_launches}}
+    log(f"train {tag}: losses {losses}, grad norms {norms}; step ms "
+        f"{[round(x, 1) for x in result['step_ms']]} (the first warms up), median of steps 2 "
+        f"to {steps} {step_ms:.1f} ms = {result['utt_per_s']:.1f} utt/s; peak "
+        f"{peak_gib:.2f} GiB; launches {launches}")
+    if not detail:
+        return result, first_grads
 
-    mixture, target = decode_wire(wire_m, dev), decode_wire(wire_s, dev)
-    target = target if use_pit else target[:, 0]
-    if model_config is not None:  # the train step's stft-domain adaptation
-        mixture, target = stft_custom(mixture, model_config), stft_custom(target, model_config)
+    mixture, target = adapt(spec, decode_wire(wire_m, dev), decode_wire(wire_s, dev),
+                            model_config)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     events[0].record()
     opt.zero_grad()
@@ -739,17 +766,8 @@ def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRA
     split = {name: events[i].elapsed_time(events[i + 1])
              for i, name in enumerate(("forward", "backward", "optimizer"))}
     busy_ms, top = device_busy(step_fn)
-    batch = mixture.shape[0]
-    result = {"config": os.path.relpath(path, ROOT), "overrides": overrides, "batch": batch,
-              "seconds": TRAIN_SECONDS, "losses": losses, "grad_norms": norms,
-              "step_ms": [1e3 * t for t in times], "median_step_ms_2_to_3": step_ms,
-              "utt_per_s": batch / (step_ms / 1e3), "peak_mem_gib": peak_gib,
-              "launches": launches, "split_ms": split, "device_busy_ms": busy_ms,
-              "device_busy_share": busy_ms / step_ms if busy_ms else None, "top_kernels": top}
-    log(f"train {tag}: losses {losses}, grad norms {norms}; step ms "
-        f"{[round(x, 1) for x in result['step_ms']]} (the first warms up), median of steps 2 "
-        f"to {TRAIN_STEPS} {step_ms:.1f} ms = {result['utt_per_s']:.1f} utt/s; peak "
-        f"{peak_gib:.2f} GiB; launches {launches}")
+    result.update(split_ms=split, device_busy_ms=busy_ms,
+                  device_busy_share=busy_ms / step_ms if busy_ms else None, top_kernels=top)
     share = result["device_busy_share"]
     log(f"train {tag}: one step by CUDA events: " + ", ".join(
         f"{k} {v:.1f} ms" for k, v in split.items()) + f"; device busy {busy_ms:.1f} ms "
@@ -758,32 +776,100 @@ def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRA
     return result, first_grads
 
 
+BLOCK_STEP = {"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6, "enc_bwd_gz": 5,
+              "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6}  # a fused DCCRN train step
+
+
+def expect_launches(tag: str, got: dict, **want) -> None:
+    full = dict.fromkeys(COUNTED, 0)
+    full.update(want)
+    if got != full:
+        fail(f"{tag}: launches {got}, want {full}")
+
+
+def first_step_agreement(tag: str, ref: dict, g_ref, other: dict, g_other, what: str,
+                         min_cosine: float = TRAIN_MIN_COSINE) -> dict:
+    """Two paths' first train steps on the same batch and weights: loss 1%,
+    grad norm 5%, gradient cosine >= ``min_cosine``."""
+    loss_rel = abs(other["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    norm_rel = abs(other["grad_norms"][0] - ref["grad_norms"][0]) / ref["grad_norms"][0]
+    cosine = F.cosine_similarity(g_other, g_ref, dim=0).item()
+    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
+    log(f"{tag}: {what}, first step: loss {loss_rel:.2e} relative (bound {TRAIN_LOSS_RTOL}), "
+        f"grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), gradient cosine {cosine:.6f} "
+        f"(bound {min_cosine})")
+    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < min_cosine:
+        fail(f"{tag}: {what} disagree on the first step: {agreement}")
+    return agreement
+
+
+def card_vs_cpu_step(tag, cfg, wav, mixture, sources, want_serve, want_train, seed=SEED,
+                     loss_name="mse", optim=TRAIN_OPTIM, use_pit=False, model_config=None,
+                     zero_grad=lambda key: False) -> dict:
+    """A small f32 model built from ``cfg`` with the same weights (from
+    ``seed``) on the card and on the CPU (the plain versions, which the CPU
+    tests hold against the JAX package): ``wav`` served within F32_ATOL
+    (``wav=None``: no serving), then one train step with every gradient and
+    updated leaf within LEAF_RTOL of its scale (a leaf whose true gradient
+    is zero, ``zero_grad``, at the global scale; Adam moves an element by up
+    to lr whatever its gradient: the parameters get 2 lr more). Checks the
+    card's launches."""
+    results = []
+    for device in ("cuda", "cpu"):
+        model, spec = build_model(cfg.model, device=device,
+                                  generator=torch.Generator().manual_seed(seed))
+        reset_launches()
+        served = (evaluate_utterance(wav, model, spec, cfg, device=device) if wav is not None
+                  else np.zeros(1))
+        serve_launches = read_launches()
+        opt = get_optimizer(Config(optim), model.parameters())
+        reset_launches()
+        loss, norm = train_step(model, spec, opt, mixture, sources, loss_name, use_pit=use_pit,
+                                device=device, model_config=model_config)
+        results.append((served, serve_launches, float(loss), float(norm), read_launches(),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (served_c, serve_l, loss_c, norm_c, train_l, grads_c, state_c), (
+        served_p, _, loss_p, norm_p, _, grads_p, state_p) = results
+    expect_launches(f"{tag} serve", serve_l, **want_serve)
+    expect_launches(f"{tag} train step", train_l, **want_train)
+    serve_err = float(np.abs(served_c - served_p).max())
+    if not np.isfinite(served_c).all() or serve_err > F32_ATOL:
+        fail(f"{tag} served on the card vs CPU: max abs err {serve_err} > {F32_ATOL}")
+    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
+             "grad_norm": abs(norm_c - norm_p) / norm_p}
+    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
+                                  ("state", state_c, state_p, 2 * optim["lr"])):
+        scale = max(v.abs().max().item() for v in ref.values())
+        for key in ref:
+            leaf = scale if zero_grad(key) else max(ref[key].abs().max().item(), 1e-12)
+            worst[f"{what} {key}"] = ((got[key] - ref[key]).abs().max().item() - extra) / leaf
+    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
+    if bad:
+        fail(f"{tag} train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
+    top = max(worst, key=worst.get)
+    log(f"{tag}: card vs CPU served max abs err {serve_err:.2e} (bound {F32_ATOL}); one train "
+        f"step loss {worst['loss']:.2e}, grad norm {worst['grad_norm']:.2e} relative, worst leaf "
+        f"{top} {worst[top]:.2e} of its scale (bound {LEAF_RTOL}); launches serve {serve_l}, "
+        f"train {train_l}")
+    return {"serve_err": serve_err, "served_shape": served_c.shape, "loss_rel": worst["loss"],
+            "grad_norm_rel": worst["grad_norm"], "worst_leaf": top, "worst_leaf_err": worst[top]}
+
+
 def train_phase(dev) -> dict:
     """bench.py's train step at full width on both paths, the fused one
-    through all eight kernels, held against each other on the first step."""
+    through all eight kernels (enc0's input is the spectrogram: no input
+    gradient launched), held against each other on the first step."""
     cfg = load_config(CONFIG)
     wire_m, wire_s = train_batch(int(cfg.dset.sample_rate))
     fused, g_fused = train_path("fused", dev, wire_m, wire_s, use_fused_blocks=True)
-    per_step = dict.fromkeys(COUNTED, 0)
-    per_step.update({"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6,
-                     # enc0's input is the spectrogram: no input gradient launched
-                     "enc_bwd_gz": 5, "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6})
-    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
-    if fused["launches"] != want:
-        fail(f"the fused train steps' launches {fused['launches']}, want {want}")
+    expect_launches("the fused train steps", fused["launches"],
+                    **{k: TRAIN_STEPS * v for k, v in BLOCK_STEP.items()})
     unfused, g_unfused = train_path("unfused (cbn_fold)", dev, wire_m, wire_s, cbn_fold=True)
-    want = {k: TRAIN_STEPS * per_step[k] if k in ("stft", "mask_e") else 0 for k in per_step}
-    if unfused["launches"] != want:
-        fail(f"the unfused train steps' launches {unfused['launches']}, want {want}")
-    loss_rel = abs(fused["losses"][0] - unfused["losses"][0]) / abs(unfused["losses"][0])
-    norm_rel = abs(fused["grad_norms"][0] - unfused["grad_norms"][0]) / unfused["grad_norms"][0]
-    cosine = F.cosine_similarity(g_fused, g_unfused, dim=0).item()
-    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
-    log(f"train: fused vs unfused first step: loss {loss_rel:.2e} relative (bound "
-        f"{TRAIN_LOSS_RTOL}), grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), cosine of "
-        f"the gradients {cosine:.6f} (bound {TRAIN_MIN_COSINE})")
-    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < TRAIN_MIN_COSINE:
-        fail(f"fused and unfused first train steps disagree: {agreement}")
+    expect_launches("the unfused train steps", unfused["launches"], stft=TRAIN_STEPS,
+                    mask_e=TRAIN_STEPS)
+    agreement = first_step_agreement("train", unfused, g_unfused, fused, g_fused,
+                                     "fused vs unfused")
     return {"fused": fused, "unfused": unfused, "first_step_agreement": agreement}
 
 
@@ -795,52 +881,18 @@ def zero_grad_bias(key: str, n_blocks: int) -> bool:
 def train_reference_phase(dev) -> dict:
     """The small f32 fused DCCRN: one train step on the card through the f32
     variants of all eight kernels vs the same step on the CPU (the plain
-    versions, which the CPU tests hold against the JAX package). Loss, grad
+    versions, which the CPU tests hold against the JAX package): loss, grad
     norm, every gradient and every updated parameter and statistic within
-    LEAF_RTOL of each leaf's largest magnitude. Two exceptions, as the CPU
-    test: a conv bias that complex BN follows has an exactly zero true
-    gradient, so both sides hold rounding residue, compared at the global
-    scale; and Adam moves an element by up to lr whatever its gradient's
-    size, so the parameters get 2 lr more."""
+    LEAF_RTOL of each leaf's largest magnitude (``card_vs_cpu_step``; a conv
+    bias that complex BN follows has an exactly zero true gradient, so both
+    sides hold rounding residue, compared at the global scale)."""
     rng = np.random.default_rng(SEED + 3)
     mixture = (0.5 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
     sources = (0.5 * rng.standard_normal((2, 1, 1, 8000))).astype(np.float32)
-    cfg = Config(SMALL_FUSED)
-    results = []
-    for device in (dev, "cpu"):
-        model, spec = build_model(cfg, device=device, generator=torch.Generator().manual_seed(5))
-        opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
-        reset_launches()
-        loss, norm = train_step(model, spec, opt, mixture, sources, "mse", device=device)
-        results.append((float(loss), float(norm), read_launches(),
-                        {k: p.grad.cpu() for k, p in model.named_parameters()},
-                        {k: v.cpu() for k, v in model.state_dict().items()}))
-    (loss_c, norm_c, launches, grads_c, state_c), (loss_p, norm_p, _, grads_p, state_p) = results
-    want = dict.fromkeys(COUNTED, 0)
-    want.update({"stft": 1, "mask_e": 1, "conv_block": 6, "deconv_block": 6, "enc_bwd_gz": 5,
-                 "enc_bwd_dw": 6, "dec_bwd_gz": 6, "dec_bwd_dw": 6})
-    if launches != want:
-        fail(f"small f32 fused train step launched {launches}, want {want}")
-    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
-             "grad_norm": abs(norm_c - norm_p) / norm_p}
     n_blocks = len(SMALL_FUSED["kernel_num"])
-    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
-                                  ("state", state_c, state_p, 2 * TRAIN_OPTIM["lr"])):
-        scale = max(v.abs().max().item() for v in ref.values())
-        for key in ref:
-            leaf = scale if zero_grad_bias(key, n_blocks) else max(ref[key].abs().max().item(),
-                                                                   1e-12)
-            err = (got[key] - ref[key]).abs().max().item()
-            worst[f"{what} {key}"] = (err - extra) / leaf
-    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
-    if bad or not np.isfinite(loss_c):
-        fail(f"small f32 fused train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
-    top = max(worst, key=worst.get)
-    log(f"train reference: small f32 fused DCCRN one step card vs CPU: loss {worst['loss']:.2e}, "
-        f"grad norm {worst['grad_norm']:.2e} relative; worst leaf {top} {worst[top]:.2e} of its "
-        f"scale (bound {LEAF_RTOL}); launches {launches}")
-    return {"loss_rel": worst["loss"], "grad_norm_rel": worst["grad_norm"], "worst_leaf": top,
-            "worst_leaf_err": worst[top]}
+    return card_vs_cpu_step("train reference: small f32 fused DCCRN", Config(
+        {"model": SMALL_FUSED}), None, mixture, sources, {}, BLOCK_STEP, seed=5,
+        zero_grad=lambda key: zero_grad_bias(key, n_blocks))
 
 
 def reference_phase(dev) -> dict:
@@ -922,7 +974,7 @@ COUNTED = {"stft": stft_kernel, "mask_e": mask_e_kernel, "conv_block": fused_con
 def reset_launches() -> None:
     for wrapper in COUNTED.values():
         wrapper.launches = 0
-    lstm_k.lstm_fwd.reverse_launches = 0
+    lstm_k.lstm_fwd.reverse_launches = lstm_k.lstm_bwd.reverse_launches = 0
 
 
 def read_launches() -> dict:
@@ -1095,19 +1147,34 @@ def device_busy(fn):
 
 # -- the LSTM recurrence kernels ----------------------------------------------
 
-def lstm_work(steps, batch, hidden, backward=False):
+def lstm_work(steps, batch, hidden, backward=False, itemsize=2):
     """(FLOPs, bytes) of one recurrence launch: the step products 2 B H 4H
-    a step; bf16 sequences read or written once (forward: x_proj and the
-    weights in, h, c, gates out; backward: gates, c, c_prev, dout and the
-    weights in, dgates out), f32 states."""
+    a step; sequences of ``itemsize`` bytes read or written once (forward:
+    x_proj and the weights in, h, c, gates out; backward: gates, c, c_prev,
+    dout and the weights in, dgates out), f32 states."""
     flops = 2.0 * steps * batch * hidden * 4 * hidden
-    seq, gates = 2.0 * steps * batch * hidden, 2.0 * steps * batch * 4 * hidden
-    weights, states = 2.0 * 4 * hidden * hidden, 4.0 * batch * hidden
+    seq = itemsize * steps * batch * hidden
+    gates = itemsize * steps * batch * 4 * hidden
+    weights, states = itemsize * 4.0 * hidden * hidden, 4.0 * batch * hidden
     if backward:
         nbytes = 2 * gates + 3 * seq + weights + 4 * states
     else:
         nbytes = 2 * gates + 2 * seq + weights + 2 * states
     return flops, nbytes
+
+
+def lstm_bound(row, backward=False):
+    """The case's least time: FLOPs at the dtype's peak rate (bf16 tensor
+    cores, or f32 FMA) against its bytes at the HBM rate."""
+    bf16 = row["dtype"] == "bfloat16"
+    flops, nbytes = lstm_work(row["steps"], row["batch"], row["hidden"], backward,
+                              2 if bf16 else 4)
+    row["gflop"] = flops / 1e9
+    row["flops_bound_ms"] = flops / (BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S) * 1e3
+    row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
+    row["bound_by"] = "operations" if row["flops_bound_ms"] > row["bytes_bound_ms"] else "bytes"
+    row["us_per_step"] = row["ms"] * 1e3 / row["steps"]
 
 
 def lstm_inputs(gen, steps, batch, hidden, dtype, dev, state=False):
@@ -1136,125 +1203,145 @@ def lstm_close(got, want, bf16: bool):
     return worst, mean
 
 
-def lstm_kernel_phase(dev) -> dict:
-    """Both LSTM kernels vs their plain versions on the card: the forward at
-    CRN's serving (B 192) and training (B 16) shapes and at rnn-stft-mask's
-    (B 384, H 896) in both directions, bf16, T 501; the backward at CRN's
-    training shape; a small f32 case with an initial state both ways. The
-    yardstick is cuDNN's torch.nn.LSTM on the layer's input at the same
-    shapes (more work: it includes the input projection), forward for the
-    forward kernel, forward + backward for the backward kernel."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    bf16 = torch.bfloat16
-    rows = []
-    for tag, steps, batch, hidden, reverse in (
-            ("crn serve", 501, 192, 1792, False), ("crn train", 501, 16, 1792, False),
-            ("rnn-stft-mask serve", 501, 384, 896, False),
-            ("rnn-stft-mask serve, reversed", 501, 384, 896, True)):
-        args = lstm_inputs(gen, steps, batch, hidden, bf16, dev)
-        got = lstm_k.lstm_fwd(*args, reverse)
-        want = lstm_k.fused_lstm_plain(*args, reverse)
-        torch.cuda.synchronize()
-        err, mean = lstm_close(got, want, True)
-        if not np.isfinite(mean):
-            fail(f"lstm_fwd ({tag}) disagrees with plain: max abs err {err}, mean {mean} (bounds "
-                 f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean {LSTM_MEAN:g})")
-        del got, want
-        flops, nbytes = lstm_work(steps, batch, hidden)
-        in_dim = 257 if tag.startswith("rnn") else hidden  # the first layer's input width
-        cudnn = torch.nn.LSTM(in_dim, hidden).to(dev, bf16)
-        x = torch.randn(steps, batch, in_dim, device=dev, generator=gen).to(bf16)
-        with torch.no_grad():
-            library = cuda_ms(lambda: cudnn(x), reps=3, warmup=1)
-        row = {"case": tag, "steps": steps, "batch": batch, "hidden": hidden,
-               "reverse": reverse, "max_abs_err": err, "mean_abs_err": mean,
-               "ms": cuda_ms(lambda: lstm_k.lstm_fwd(*args, reverse), reps=3, warmup=1),
-               "plain_ms": cuda_ms(lambda: lstm_k.fused_lstm_plain(*args, reverse), reps=1,
-                                   warmup=0),
-               "library_ms": library, "gflop": flops / 1e9,
-               "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
-               "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
-        row["bound_by"] = ("operations" if row["flops_bound_ms"] > row["bytes_bound_ms"]
-                           else "bytes")
-        row["us_per_step"] = row["ms"] * 1e3 / steps
-        rows.append(row)
-        log(f"lstm_fwd {tag}: T {steps}, B {batch}, H {hidden} bf16; max abs "
-            f"err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms = "
-            f"{row['us_per_step']:.2f} us a step ({row['gflop'] / row['ms']:.2f} TFLOP/s), "
-            f"plain {row['plain_ms']:.3f} ms, cuDNN "
-            f"nn.LSTM forward ({in_dim} -> {hidden}) {library:.3f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-        del args, cudnn, x
+# (case, T, B, H, dtype, reversed, the layer's input width for cuDNN): CRN's
+# serving and training layer, rnn-stft-mask's serving layer both ways,
+# mel-rnn's f32 training layer and rnn-stft-mask's training layer both ways
+LSTM_FWD_CASES = (
+    ("crn serve", 501, 192, 1792, torch.bfloat16, False, 1792),
+    ("crn train", 501, 16, 1792, torch.bfloat16, False, 1792),
+    ("rnn-stft-mask serve", 501, 384, 896, torch.bfloat16, False, 257),
+    ("rnn-stft-mask serve, reversed", 501, 384, 896, torch.bfloat16, True, 257),
+    ("mel-rnn train", 501, 16, 256, torch.float32, False, 257),
+    ("rnn-stft-mask train", 501, 16, 896, torch.bfloat16, False, 257),
+    ("rnn-stft-mask train, reversed", 501, 16, 896, torch.bfloat16, True, 257))
+LSTM_BWD_CASES = (
+    ("crn train", 501, 16, 1792, torch.bfloat16, False, 1792),
+    ("mel-rnn train", 501, 16, 256, torch.float32, False, 257),
+    ("rnn-stft-mask train", 501, 16, 896, torch.bfloat16, False, 257),
+    ("rnn-stft-mask train, reversed", 501, 16, 896, torch.bfloat16, True, 257))
 
-    # backward at CRN's train shape, on the plain forward's outputs
-    steps, batch, hidden = 501, CRN_TRAIN_BATCH, 1792
-    x_proj, w_hh, h0, c0 = lstm_inputs(gen, steps, batch, hidden, bf16, dev)
-    _, c_seq, gates = lstm_k.fused_lstm_plain(x_proj, w_hh, h0, c0)
-    c_prev = lstm_k.shift_prev(c_seq, c0, False)
-    dout = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16)
+
+def lstm_fwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim) -> dict:
+    """The forward kernel vs its plain version at one shape, timed beside
+    cuDNN's torch.nn.LSTM forward on the layer's input (more work: it
+    includes the input projection; a reversed case against the same
+    unidirectional call)."""
+    bf16 = dtype == torch.bfloat16
+    args = lstm_inputs(gen, steps, batch, hidden, dtype, dev)
+    got = lstm_k.lstm_fwd(*args, reverse)
+    want = lstm_k.fused_lstm_plain(*args, reverse)
+    torch.cuda.synchronize()
+    err, mean = lstm_close(got, want, bf16)
+    if not np.isfinite(mean):
+        fail(f"lstm_fwd ({tag}) disagrees with plain: max abs err {err}, mean {mean} (bounds "
+             + (f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean {LSTM_MEAN:g})" if bf16 else
+                f"|d| <= {LSTM_F32_TOL:g}(1 + |ref|))"))
+    del got, want
+    cudnn = torch.nn.LSTM(in_dim, hidden).to(dev, dtype)
+    x = torch.randn(steps, batch, in_dim, device=dev, generator=gen).to(dtype)
+    with torch.no_grad():
+        library = cuda_ms(lambda: cudnn(x), reps=3, warmup=1)
+    row = {"case": tag, "steps": steps, "batch": batch, "hidden": hidden,
+           "dtype": str(dtype).split(".")[-1], "reverse": reverse, "max_abs_err": err,
+           "mean_abs_err": mean,
+           "ms": cuda_ms(lambda: lstm_k.lstm_fwd(*args, reverse), reps=3, warmup=1),
+           "plain_ms": cuda_ms(lambda: lstm_k.fused_lstm_plain(*args, reverse), reps=1,
+                               warmup=0),
+           "library_ms": library}
+    lstm_bound(row)
+    log(f"lstm_fwd {tag}: T {steps}, B {batch}, H {hidden} {row['dtype']}; max abs "
+        f"err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms = "
+        f"{row['us_per_step']:.2f} us a step ({row['gflop'] / row['ms']:.2f} TFLOP/s), "
+        f"plain {row['plain_ms']:.3f} ms, cuDNN "
+        f"nn.LSTM forward ({in_dim} -> {hidden}) {library:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
+                  first_design=False) -> dict:
+    """The backward kernel vs its plain version at one shape, on the plain
+    forward's outputs: dgates, dh0 and dc0 within LSTM_BWD_RTOL (bf16, the
+    ring) or LSTM_F32_TOL (f32, the first design) of each one's largest;
+    timed beside cuDNN's nn.LSTM forward + backward and its backward alone.
+    ``first_design`` also times the first design in the same run (w_hh 2
+    bytes off a 16-byte address takes it)."""
+    bf16 = dtype == torch.bfloat16
+    tol = LSTM_BWD_RTOL if bf16 else LSTM_F32_TOL
+    x_proj, w_hh, h0, c0 = lstm_inputs(gen, steps, batch, hidden, dtype, dev)
+    _, c_seq, gates = lstm_k.fused_lstm_plain(x_proj, w_hh, h0, c0, reverse)
+    c_prev = lstm_k.shift_prev(c_seq, c0, reverse)
+    dout = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(dtype)
     d_last = torch.randn(batch, hidden, device=dev, generator=gen)
     zero = torch.zeros(batch, hidden, device=dev)
     bwd_args = (gates, c_seq, c_prev, dout, w_hh, zero, d_last)
-    design = lstm_k.lstm_bwd_design(bf16, hidden, batch)[0]
-    got = lstm_k.lstm_bwd(*bwd_args)
-    want = lstm_k.lstm_bwd_plain(*bwd_args)
+    design = lstm_k.lstm_bwd_design(dtype, hidden, batch)[0]
+    got = lstm_k.lstm_bwd(*bwd_args, reverse)
+    want = lstm_k.lstm_bwd_plain(*bwd_args, reverse)
     torch.cuda.synchronize()
     rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
            for g, w in zip(got, want)]
-    bwd_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-    if design != "ring" or not max(rel) <= LSTM_BWD_RTOL:
-        fail(f"lstm_bwd ({design}) disagrees with plain: dgates, dh0, dc0 {rel} of their "
-             f"largest (bound {LSTM_BWD_RTOL:g})")
-    # the first design in the same run: w_hh 2 bytes off a 16-byte address
-    # takes it
-    w_off = torch.empty(w_hh.numel() + 1, device=dev, dtype=bf16)[1:].view_as(w_hh)
-    first_args = (*bwd_args[:4], w_off.copy_(w_hh), *bwd_args[5:])
-    if lstm_k.lstm_bwd_design(bf16, hidden, batch, aligned=False)[0] != "first":
-        fail("lstm_bwd: an unaligned w_hh does not take the first design")
-    first = lstm_k.lstm_bwd(*first_args)
-    first_rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
-                 for g, w in zip(first, want)]
-    if not max(first_rel) <= LSTM_BWD_RTOL:
-        fail(f"lstm_bwd first design disagrees with plain: {first_rel} (bound {LSTM_BWD_RTOL:g})")
-    del got, want, first
-    cudnn = torch.nn.LSTM(hidden, hidden).to(dev, bf16)
-    x = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16).requires_grad_()
-    g_out = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(bf16)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    if design != ("ring" if bf16 else "first") or not max(rel) <= tol:
+        fail(f"lstm_bwd {tag} ({design}) disagrees with plain: dgates, dh0, dc0 {rel} of their "
+             f"largest (bound {tol:g})")
+    row = {"case": tag, "steps": steps, "batch": batch, "hidden": hidden,
+           "dtype": str(dtype).split(".")[-1], "reverse": reverse, "design": design,
+           "rel_err": rel, "max_abs_err": err}
+    if first_design:
+        w_off = torch.empty(w_hh.numel() + 1, device=dev, dtype=dtype)[1:].view_as(w_hh)
+        first_args = (*bwd_args[:4], w_off.copy_(w_hh), *bwd_args[5:])
+        if lstm_k.lstm_bwd_design(dtype, hidden, batch, aligned=False)[0] != "first":
+            fail("lstm_bwd: an unaligned w_hh does not take the first design")
+        first = lstm_k.lstm_bwd(*first_args, reverse)
+        row["first_design_rel_err"] = [
+            ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            for g, w in zip(first, want)]
+        if not max(row["first_design_rel_err"]) <= tol:
+            fail(f"lstm_bwd first design disagrees with plain: {row['first_design_rel_err']} "
+                 f"(bound {tol:g})")
+        row["first_design_ms"] = cuda_ms(lambda: lstm_k.lstm_bwd(*first_args, reverse), reps=3,
+                                         warmup=1)
+        del first, first_args, w_off
+    del got, want
+    cudnn = torch.nn.LSTM(in_dim, hidden).to(dev, dtype)
+    x = torch.randn(steps, batch, in_dim, device=dev, generator=gen).to(dtype).requires_grad_()
+    g_out = torch.randn(steps, batch, hidden, device=dev, generator=gen).to(dtype)
 
     def cudnn_fwd_bwd():
         cudnn(x)[0].backward(g_out)
 
-    # cuDNN's backward alone: one forward, then its graph again and again
-    y = cudnn(x)[0]
+    y = cudnn(x)[0]  # cuDNN's backward alone: one forward, then its graph again and again
     leaves = (x, *cudnn.parameters())
+    row.update(ms=cuda_ms(lambda: lstm_k.lstm_bwd(*bwd_args, reverse), reps=3, warmup=1),
+               plain_ms=cuda_ms(lambda: lstm_k.lstm_bwd_plain(*bwd_args, reverse), reps=1,
+                                warmup=0),
+               library_ms=cuda_ms(cudnn_fwd_bwd, reps=3, warmup=1),
+               cudnn_bwd_ms=cuda_ms(lambda: torch.autograd.grad(y, leaves, g_out,
+                                                                retain_graph=True),
+                                    reps=3, warmup=1))
+    lstm_bound(row, backward=True)
+    log(f"lstm_bwd {tag}: T {steps}, B {batch}, H {hidden} {row['dtype']}, design {design}; "
+        f"dgates, dh0, dc0 within {[f'{r:.2e}' for r in rel]} of their largest (bound "
+        f"{tol:g}); kernel {row['ms']:.3f} ms = {row['us_per_step']:.2f} us a step, plain "
+        f"{row['plain_ms']:.3f} ms, cuDNN nn.LSTM ({in_dim} -> {hidden}) forward + backward "
+        f"{row['library_ms']:.3f} ms, its backward alone {row['cudnn_bwd_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+        + (f"; the first design in the same run {row['first_design_ms']:.3f} ms (within "
+           f"{[f'{r:.2e}' for r in row['first_design_rel_err']]})" if first_design else ""))
+    return row
 
-    def cudnn_bwd():
-        torch.autograd.grad(y, leaves, g_out, retain_graph=True)
 
-    flops, nbytes = lstm_work(steps, batch, hidden, backward=True)
-    bwd = {"case": "crn train", "steps": steps, "batch": batch, "hidden": hidden,
-           "rel_err": rel, "max_abs_err": bwd_err,
-           "ms": cuda_ms(lambda: lstm_k.lstm_bwd(*bwd_args), reps=3, warmup=1),
-           "plain_ms": cuda_ms(lambda: lstm_k.lstm_bwd_plain(*bwd_args), reps=1, warmup=0),
-           "library_ms": cuda_ms(cudnn_fwd_bwd, reps=3, warmup=1), "gflop": flops / 1e9,
-           "cudnn_bwd_ms": cuda_ms(cudnn_bwd, reps=3, warmup=1),
-           "design": design, "first_design_ms": cuda_ms(lambda: lstm_k.lstm_bwd(*first_args),
-                                                        reps=3, warmup=1),
-           "first_design_rel_err": first_rel,
-           "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
-           "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-    bwd["bound_ms"] = max(bwd["flops_bound_ms"], bwd["bytes_bound_ms"])
-    bwd["bound_by"] = "operations" if bwd["flops_bound_ms"] > bwd["bytes_bound_ms"] else "bytes"
-    bwd["us_per_step"] = bwd["ms"] * 1e3 / steps
-    log(f"lstm_bwd crn train: T {steps}, B {batch}, H {hidden} bf16, design {design}; dgates, "
-        f"dh0, dc0 within {[f'{r:.2e}' for r in rel]} of their largest (bound "
-        f"{LSTM_BWD_RTOL:g}); kernel {bwd['ms']:.3f} ms = {bwd['us_per_step']:.2f} us a step, "
-        f"plain {bwd['plain_ms']:.3f} ms, cuDNN nn.LSTM forward + backward "
-        f"{bwd['library_ms']:.3f} ms, cuDNN backward alone {bwd['cudnn_bwd_ms']:.3f} ms, bound "
-        f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); the first design in the same run "
-        f"{bwd['first_design_ms']:.3f} ms (within {[f'{r:.2e}' for r in first_rel]})")
-    del bwd_args, first_args, w_off, gates, c_seq, c_prev, dout, x, g_out, cudnn, y, leaves
+def lstm_kernel_phase(dev) -> dict:
+    """Both LSTM kernels vs their plain versions on the card at every case
+    of LSTM_FWD_CASES / LSTM_BWD_CASES (T 501), the backward's first design
+    timed beside the ring at CRN's training shape, and a small f32 case with
+    an initial state both ways. The kernel line's numbers are CRN's (serve
+    for the forward, train for the backward); every case rides along."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = [lstm_fwd_case(dev, gen, *case) for case in LSTM_FWD_CASES]
+    bwd_rows = [lstm_bwd_case(dev, gen, *case, first_design=case[0] == "crn train")
+                for case in LSTM_BWD_CASES]
 
     # small f32 with an initial state, both directions, forward and backward
     for reverse in (False, True):
@@ -1275,8 +1362,9 @@ def lstm_kernel_phase(dev) -> dict:
         log(f"lstm f32 T 64, B 8, H 256, initial state, reverse {reverse}: forward max abs err "
             f"{err:.2e}, backward {rel:.2e} of the largest (bound {LSTM_F32_TOL:g})")
 
-    main = rows[0]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    shown = ("case", "dtype", "batch", "hidden", "reverse", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
     return {
         "lstm_fwd": {
             "name": "lstm_fwd", "route": "cuda",
@@ -1284,14 +1372,16 @@ def lstm_kernel_phase(dev) -> dict:
             "replaces": "speech_enhancement_tpu/ops/pallas/lstm.py:116",
             "shape": "CRN serve: T 501, B 192, H 1792 bf16 (one layer)",
             "tolerance": f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean <= {LSTM_MEAN:g}",
-            **{k: main[k] for k in keys}, "cases": rows},
+            **{k: rows[0][k] for k in keys},
+            "cases": [{k: r[k] for k in shown} for r in rows]},
         "lstm_bwd": {
             "name": "lstm_bwd", "route": "cuda",
             "source": "speech_enhancement_torch/kernels/csrc/lstm_bwd.cu",
             "replaces": "speech_enhancement_tpu/ops/pallas/lstm.py:148",
             "shape": "CRN train: T 501, B 16, H 1792 bf16 (one layer)",
             "tolerance": f"{LSTM_BWD_RTOL:g} of each output's largest",
-            **{k: bwd[k] for k in keys}, "case": bwd},
+            **{k: bwd_rows[0][k] for k in keys},
+            "cases": [{k: r[k] for k in shown} for r in bwd_rows]},
     }
 
 
@@ -1336,12 +1426,13 @@ def crn_stage_split(model, cfg, mixture, dev) -> dict:
 
 
 def serve_family(tag, dev, path, requests, want_launches, stage_fn=None,
-                 plain=(("fused_rnn", False),)) -> dict:
-    """Serve ``requests`` with the config at ``path`` (its kernels as the
-    config sets them) and again with the overrides ``plain`` (default
-    fused_rnn = False, the plain loop), the same weights; checks the first
-    run's launches and the agreement."""
-    cfg, model, spec = load_model(dev, path)
+                 plain=(("fused_rnn", False),), f32=False, **overrides) -> dict:
+    """Serve ``requests`` with the config at ``path`` and ``overrides`` (its
+    kernels as the config sets them) and again with the overrides ``plain``
+    too (default fused_rnn = False, the plain loop), the same weights;
+    checks the first run's launches and the agreement: the bf16 bound, or
+    with ``f32`` every sample within F32_ATOL of the reference's peak."""
+    cfg, model, spec = load_model(dev, path, **overrides)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     outs, times = serve(model, spec, cfg, requests, dev)
@@ -1360,13 +1451,19 @@ def serve_family(tag, dev, path, requests, want_launches, stage_fn=None,
     stages = stage_fn(model, cfg, requests[0], dev) if stage_fn else None
     del model
     torch.cuda.reset_peak_memory_stats()
-    _, plain_model, _ = load_model(dev, path, **dict(plain))
+    _, plain_model, _ = load_model(dev, path, **{**overrides, **dict(plain)})
     reset_launches()
     plain_outs, plain_times = serve(plain_model, spec, cfg, requests, dev)
     plain_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if any(read_launches().values()):
         fail(f"{tag}: the plain path launched a kernel: {read_launches()}")
-    agreement = agree(outs, plain_outs, f"{tag}: kernel path vs plain path")
+    if f32:
+        agreement = [{"max_err": float(np.abs(o - r).max()), "peak": float(np.abs(r).max())}
+                     for o, r in zip(outs, plain_outs)]
+        if any(a["max_err"] > F32_ATOL * a["peak"] for a in agreement):
+            fail(f"{tag}: kernel path vs plain path beyond {F32_ATOL} of the peak: {agreement}")
+    else:
+        agreement = agree(outs, plain_outs, f"{tag}: kernel path vs plain path")
     del plain_model
     ms = 1e3 * statistics.mean(times[1:])
     result = {"config": os.path.relpath(path, ROOT), "params": n_params,
@@ -1376,7 +1473,7 @@ def serve_family(tag, dev, path, requests, want_launches, stage_fn=None,
               "launches": launches, "reverse_launches": reversed_launches,
               "plain_request_ms": [1e3 * t for t in plain_times], "plain_peak_mem_gib":
               plain_peak_gib, "agreement": agreement}
-    log(f"{tag}: {n_params} params (bf16 compute), {len(requests)} requests of {SECONDS:g} s; "
+    log(f"{tag}: {n_params} params, {len(requests)} requests of {SECONDS:g} s; "
         f"request ms {[round(x, 1) for x in result['request_ms']]} (first includes warm-up); "
         f"warm {ms:.1f} ms/request = {result['utt_per_s']:.2f} utt/s, RTF {result['rtf']:.4f}; "
         f"peak {peak_gib:.2f} GiB; launches {launches}; plain path ({dict(plain)}) request ms "
@@ -1434,10 +1531,8 @@ def crn_train_phase(dev) -> dict:
     first step against the plain loop (fused_rnn = False)."""
     mixture, sources = crn_train_batch()
     fused, g_fused = train_path("crn", dev, mixture, sources, CRN_CONFIG)
-    want = dict.fromkeys(COUNTED, 0)
-    want.update(lstm_fwd=2 * TRAIN_STEPS, lstm_bwd=2 * TRAIN_STEPS)
-    if fused["launches"] != want:
-        fail(f"crn train: launches {fused['launches']}, want {want}")
+    expect_launches("crn train", fused["launches"], lstm_fwd=2 * TRAIN_STEPS,
+                    lstm_bwd=2 * TRAIN_STEPS)
     # the backward kernel's share of a step, from the profiled step's kernels
     bwd_ms = sum(t["ms"] for t in fused["top_kernels"] if "lstm_bwd" in t["kernel"])
     fused["lstm_bwd_ms"] = bwd_ms
@@ -1450,73 +1545,27 @@ def crn_train_phase(dev) -> dict:
            else f"{fused['lstm_bwd_share_of_busy']:.3f}") + " of the device-busy time")
     plain, g_plain = train_path("crn, plain loop", dev, mixture, sources, CRN_CONFIG,
                                 fused_rnn=False)
-    if any(plain["launches"].values()):
-        fail(f"crn train, plain loop: launched {plain['launches']}")
-    loss_rel = abs(fused["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
-    norm_rel = abs(fused["grad_norms"][0] - plain["grad_norms"][0]) / plain["grad_norms"][0]
-    cosine = F.cosine_similarity(g_fused, g_plain, dim=0).item()
-    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
-    log(f"crn train: kernels vs plain loop, first step: loss {loss_rel:.2e} relative (bound "
-        f"{TRAIN_LOSS_RTOL}), grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), gradient "
-        f"cosine {cosine:.6f} (bound {TRAIN_MIN_COSINE})")
-    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < TRAIN_MIN_COSINE:
-        fail(f"crn train: kernel and plain first steps disagree: {agreement}")
+    expect_launches("crn train, plain loop", plain["launches"])
+    agreement = first_step_agreement("crn train", plain, g_plain, fused, g_fused,
+                                     "kernels vs plain loop")
     return {"fused": fused, "plain": plain, "first_step_agreement": agreement}
 
 
 def crn_reference_phase(dev) -> dict:
     """The small f32 CRN (n_fft 128: H = 256) with the kernels on the card vs
-    the CPU path, which the CPU tests hold against JAX: a served utterance
-    within F32_ATOL, then one train step (every gradient and updated leaf
-    within LEAF_RTOL of its scale; each conv bias feeds a BatchNorm, so its
-    true gradient is zero: compared at the global scale; Adam moves a
-    parameter by up to lr whatever its gradient: 2 lr more)."""
+    the CPU path, which the CPU tests hold against JAX (``card_vs_cpu_step``:
+    a served utterance within F32_ATOL, then one train step; each conv bias
+    feeds a BatchNorm, so its true gradient is zero: compared at the global
+    scale)."""
     cfg = Config({"model": SMALL_CRN, "dset": {"sample_rate": 16000, "norm": "z-score"}})
     wav = utterance(np.random.default_rng(SEED + 7), 12000)
     rng = np.random.default_rng(SEED + 8)
     mixture = (0.5 * rng.standard_normal((2, 1, 3968))).astype(np.float32)
     sources = (0.5 * rng.standard_normal((2, 1, 1, 3968))).astype(np.float32)
-    results = []
-    for device in (dev, "cpu"):
-        model, spec = build_model(cfg.model, device=device,
-                                  generator=torch.Generator().manual_seed(6))
-        reset_launches()
-        served = evaluate_utterance(wav, model, spec, cfg, device=device)
-        serve_launches = read_launches()
-        opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
-        reset_launches()
-        loss, norm = train_step(model, spec, opt, mixture, sources, "mse", device=device,
-                                model_config=cfg.model)
-        results.append((served, serve_launches, float(loss), float(norm), read_launches(),
-                        {k: p.grad.cpu() for k, p in model.named_parameters()},
-                        {k: v.cpu() for k, v in model.state_dict().items()}))
-    (served_c, serve_l, loss_c, norm_c, train_l, grads_c, state_c), (
-        served_p, _, loss_p, norm_p, _, grads_p, state_p) = results
-    serve_err = float(np.abs(served_c - served_p).max())
-    if not np.isfinite(served_c).all() or serve_err > F32_ATOL:
-        fail(f"small f32 CRN served on the card vs CPU: max abs err {serve_err} > {F32_ATOL}")
-    if serve_l["lstm_fwd"] != 2 or train_l["lstm_fwd"] != 2 or train_l["lstm_bwd"] != 2:
-        fail(f"small f32 CRN launches: serve {serve_l}, train step {train_l}")
-    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
-             "grad_norm": abs(norm_c - norm_p) / norm_p}
-    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
-                                  ("state", state_c, state_p, 2 * TRAIN_OPTIM["lr"])):
-        scale = max(v.abs().max().item() for v in ref.values())
-        for key in ref:
-            leaf = (scale if key.endswith(".conv.bias")
-                    else max(ref[key].abs().max().item(), 1e-12))
-            worst[f"{what} {key}"] = ((got[key] - ref[key]).abs().max().item() - extra) / leaf
-    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
-    if bad:
-        fail(f"small f32 CRN train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
-    top = max(worst, key=worst.get)
-    log(f"crn reference: small f32 CRN (H 256) card vs CPU: served max abs err {serve_err:.2e} "
-        f"(bound {F32_ATOL}); one train step loss {worst['loss']:.2e}, grad norm "
-        f"{worst['grad_norm']:.2e} relative, worst leaf {top} {worst[top]:.2e} of its scale "
-        f"(bound {LEAF_RTOL}); launches serve {serve_l['lstm_fwd']} forward, train "
-        f"{train_l['lstm_fwd']} + {train_l['lstm_bwd']}")
-    return {"serve_err": serve_err, "loss_rel": worst["loss"], "worst_leaf": top,
-            "worst_leaf_err": worst[top]}
+    return card_vs_cpu_step("crn reference: small f32 CRN (H 256)", cfg, wav, mixture, sources,
+                            {"lstm_fwd": 2}, {"lstm_fwd": 2, "lstm_bwd": 2}, seed=6,
+                            model_config=cfg.model,
+                            zero_grad=lambda key: key.endswith(".conv.bias"))
 
 
 # -- the attention kernels and Sepformer ---------------------------------------
@@ -1783,12 +1832,7 @@ def sepformer_train_batch():
     """configs/sepformer_clarity.yaml's operating point: 4 stereo mixtures of
     4 s, each the sum of two speech-like stereo sources plus noise, made with
     numpy: (mixture [4, 2, n], sources [4, 2, 2, n])."""
-    rng = np.random.default_rng(SEED + 10)
-    n = int(TRAIN_SECONDS * 16000)
-    sources = np.stack([np.stack([np.concatenate([utterance(rng, n)[0] for _ in range(2)])
-                                  for _ in range(2)]) for _ in range(SEP_TRAIN_BATCH)])
-    mixture = sources.sum(axis=1) + 0.05 * rng.standard_normal((SEP_TRAIN_BATCH, 2, n))
-    return mixture.astype(np.float32), sources.astype(np.float32)
+    return stereo_pair_batch(SEP_TRAIN_BATCH, SEED + 10)
 
 
 def sepformer_train_phase(dev) -> dict:
@@ -1799,78 +1843,254 @@ def sepformer_train_phase(dev) -> dict:
     mixture, sources = sepformer_train_batch()
     fused, g_fused = train_path("sepformer", dev, mixture, sources, SEP_CONFIG, "si-sdr",
                                 SEP_OPTIM)
-    want = dict.fromkeys(COUNTED, 0)
-    want.update(mha_fwd=SEP_LAUNCHES * TRAIN_STEPS, mha_bwd=SEP_LAUNCHES * TRAIN_STEPS)
-    if fused["launches"] != want:
-        fail(f"sepformer train: launches {fused['launches']}, want {want}")
+    expect_launches("sepformer train", fused["launches"], mha_fwd=SEP_LAUNCHES * TRAIN_STEPS,
+                    mha_bwd=SEP_LAUNCHES * TRAIN_STEPS)
     plain, g_plain = train_path("sepformer, flax attention", dev, mixture, sources, SEP_CONFIG,
                                 "si-sdr", SEP_OPTIM, fused_attention=False)
-    if any(plain["launches"].values()):
-        fail(f"sepformer train, flax attention: launched {plain['launches']}")
-    loss_rel = abs(fused["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
-    norm_rel = abs(fused["grad_norms"][0] - plain["grad_norms"][0]) / plain["grad_norms"][0]
-    cosine = F.cosine_similarity(g_fused, g_plain, dim=0).item()
-    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_cosine": cosine}
-    log(f"sepformer train: kernels vs flax attention, first step: loss {loss_rel:.2e} relative "
-        f"(bound {TRAIN_LOSS_RTOL}), grad norm {norm_rel:.2e} (bound {TRAIN_NORM_RTOL}), "
-        f"gradient cosine {cosine:.6f} (bound {TRAIN_MIN_COSINE})")
-    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_NORM_RTOL or cosine < TRAIN_MIN_COSINE:
-        fail(f"sepformer train: kernel and flax-attention first steps disagree: {agreement}")
+    expect_launches("sepformer train, flax attention", plain["launches"])
+    agreement = first_step_agreement("sepformer train", plain, g_plain, fused, g_fused,
+                                     "kernels vs flax attention")
     return {"fused": fused, "plain": plain, "first_step_agreement": agreement}
 
 
 def sepformer_reference_phase(dev) -> dict:
     """The small f32 Sepformer (D 16) with the attention kernels on the card
-    vs the CPU path, which the CPU tests hold against JAX: a served stereo
-    utterance within F32_ATOL, then one si-sdr PIT train step (every
-    gradient and updated leaf within LEAF_RTOL of its scale; Adam moves a
-    parameter by up to lr whatever its gradient: 2 lr more)."""
+    vs the CPU path, which the CPU tests hold against JAX
+    (``card_vs_cpu_step``: a served stereo utterance within F32_ATOL, then
+    one si-sdr PIT train step)."""
     cfg = Config({"model": SMALL_SEP, "dset": {"sample_rate": 16000, "norm": "z-score"}})
     rng = np.random.default_rng(SEED + 11)
     wav = np.concatenate([utterance(rng, 12000), utterance(rng, 12000)], axis=1)
     sources = (0.5 * rng.standard_normal((2, 2, 2, 2000))).astype(np.float32)
-    mixture = sources.sum(axis=1)
-    results = []
-    for device in (dev, "cpu"):
-        model, spec = build_model(cfg.model, device=device,
-                                  generator=torch.Generator().manual_seed(8))
+    result = card_vs_cpu_step("sepformer reference: small f32 Sepformer (D 16)", cfg, wav,
+                              sources.sum(axis=1), sources, {"mha_fwd": 2},
+                              {"mha_fwd": 2, "mha_bwd": 2}, seed=8, loss_name="si-sdr",
+                              optim=SEP_OPTIM, use_pit=True)
+    if result["served_shape"] != (1, 2, 2, 12000):
+        fail(f"small f32 Sepformer served shape {result['served_shape']}")
+    return result
+
+
+# -- the recurrent paths: mel-rnn, rnn-stft-mask training, Sepformer's options,
+# DCCRN's real LSTM ---------------------------------------------------------------
+
+MEL_CONFIG = os.path.join(ROOT, "configs", "mel_rnn_vbd.yaml")
+MASK_TRAIN_BATCH = 8  # configs/rnn_stft_mask_clarity.yaml solver.batch_size: stereo, 2 speakers
+DCCRN_TRAIN_BATCH = 16  # configs/dccrn_vbd.yaml solver.batch_size
+REMAT_MIN_COSINE = 0.9999  # remat recomputes the same layers: the same gradients but rounding
+
+
+def stft_model_split(model, cfg, mixture, dev) -> dict:
+    """CUDA-event split of one request's call for an stft-domain model
+    without stages of its own (mel-rnn): STFT, model, mask + iSTFT; and the
+    device-busy share of the call."""
+    window = int(cfg.dset.sample_rate * cfg.model.segment)
+    stride = int(cfg.model.win_length)
+    x = torch.from_numpy(mixture[0]).to(dev)
+    x = (x - x.mean()) / (x.std() + 1e-9)
+    n_win = -(-(x.shape[-1] - window) // stride) + 1
+    n_win = -(-n_win // 4) * 4
+    wav = extract_windows(x, window, stride, n_win).contiguous()  # [N, C, W]
+    names = ["stft", "model", "istft"]
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            events[0].record()
+            spec = stft_custom(wav, cfg.model)
+            events[1].record()
+            masked = model(spec)
+            events[2].record()
+            out = istft_custom(masked, window, cfg.model)
+            events[3].record()
+            torch.cuda.synchronize()
+    ms = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
+    ms["total"] = events[0].elapsed_time(events[-1])
+
+    def call():
+        with torch.inference_mode():
+            istft_custom(model(stft_custom(wav, cfg.model)), window, cfg.model)
+
+    busy_ms, top = device_busy(call)
+    if not torch.isfinite(out).all():
+        fail("stft model split: non-finite output")
+    return {"windows": n_win, "ms": ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / ms["total"] if busy_ms else None, "top_kernels": top}
+
+
+def mel_rnn_phase(dev) -> dict:
+    """configs/mel_rnn_vbd.yaml at full width (two LSTM layers of 256, f32,
+    fused_rnn): three 10 s requests through evaluate_utterance (two forward
+    launches each) against the plain loop within F32_ATOL of the peak; the
+    same width served once with rnn_type gru and once with rnn (plain loops,
+    no launch); three train steps at B 16 x 4 s (mse, Adam 3e-4, clip 5; two
+    forward and two backward launches a step), the first held against the
+    plain loop's."""
+    rng = np.random.default_rng(SEED + 12)
+    requests = [utterance(rng, int(SECONDS * 16000)) for _ in range(N_REQUESTS)]
+    served = serve_family("mel-rnn serve", dev, MEL_CONFIG, requests,
+                          {"lstm_fwd": 2 * N_REQUESTS}, stft_model_split, f32=True)
+    other_types = {}
+    for kind in ("gru", "rnn"):
+        cfg, model, spec = load_model(dev, MEL_CONFIG, rnn_type=kind)
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        served = evaluate_utterance(wav, model, spec, cfg, device=device)
-        serve_launches = read_launches()
-        opt = get_optimizer(Config(SEP_OPTIM), model.parameters())
+        outs, times = serve(model, spec, cfg, requests[:1], dev)
+        if any(read_launches().values()):
+            fail(f"mel-rnn serve, rnn_type {kind}: launched {read_launches()}")
+        if outs[0].shape != requests[0].shape or not np.isfinite(outs[0]).all():
+            fail(f"mel-rnn serve, rnn_type {kind}: output {outs[0].shape}, finite "
+                 f"{np.isfinite(outs[0]).all()}")
+        other_types[kind] = {"params": sum(p.numel() for p in model.parameters()),
+                             "request_ms": 1e3 * times[0],
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"mel-rnn serve, rnn_type {kind} (plain loop): {other_types[kind]}")
+        del model
+    mixture, sources = crn_train_batch()  # 16 mono 4 s items, the config's batch
+    fused, g_fused = train_path("mel-rnn", dev, mixture, sources, MEL_CONFIG)
+    expect_launches("mel-rnn train", fused["launches"], lstm_fwd=2 * TRAIN_STEPS,
+                    lstm_bwd=2 * TRAIN_STEPS)
+    plain, g_plain = train_path("mel-rnn, plain loop", dev, mixture, sources, MEL_CONFIG,
+                                steps=1, detail=False, fused_rnn=False)
+    expect_launches("mel-rnn train, plain loop", plain["launches"])
+    agreement = first_step_agreement("mel-rnn train", plain, g_plain, fused, g_fused,
+                                     "kernels vs plain loop")
+    return {"serve": served, "other_types": other_types, "train": fused, "plain_train": plain,
+            "first_step_agreement": agreement}
+
+
+def stereo_pair_batch(batch: int, seed: int):
+    """``batch`` stereo mixtures of 4 s, each the sum of two speech-like
+    stereo sources plus noise, made with numpy: (mixture [B, 2, n],
+    sources [B, 2, 2, n])."""
+    rng = np.random.default_rng(seed)
+    n = int(TRAIN_SECONDS * 16000)
+    sources = np.stack([np.stack([np.concatenate([utterance(rng, n)[0] for _ in range(2)])
+                                  for _ in range(2)]) for _ in range(batch)])
+    mixture = sources.sum(axis=1) + 0.05 * rng.standard_normal((batch, 2, n))
+    return mixture.astype(np.float32), sources.astype(np.float32)
+
+
+def rnn_stft_mask_train_phase(dev) -> dict:
+    """configs/rnn_stft_mask_clarity.yaml at full width (three bidirectional
+    LSTM layers of 896, bf16, fused_rnn) training at its operating point
+    (B 8 stereo x 4 s, two speakers, mse with PIT, Adam 3e-4, clip 5): three
+    steps with drop_out 0 (six forward and six backward launches a step,
+    three of each reversed), the first held against the plain loop's; then
+    three steps with the config's drop_out 0.5, finite. Not through the
+    CLI: the config sets ``ha:``, which the Solver refuses until the ha/
+    slice."""
+    mixture, sources = stereo_pair_batch(MASK_TRAIN_BATCH, SEED + 13)
+    fused, g_fused = train_path("rnn-stft-mask (drop_out 0)", dev, mixture, sources, MASK_CONFIG,
+                                drop_out=0.0)
+    expect_launches("rnn-stft-mask train", fused["launches"], lstm_fwd=6 * TRAIN_STEPS,
+                    lstm_bwd=6 * TRAIN_STEPS)
+    if fused["reverse_launches"] != {"lstm_fwd": 3 * TRAIN_STEPS, "lstm_bwd": 3 * TRAIN_STEPS}:
+        fail(f"rnn-stft-mask train: reversed launches {fused['reverse_launches']}, want "
+             f"{3 * TRAIN_STEPS} of each")
+    plain, g_plain = train_path("rnn-stft-mask (drop_out 0), plain loop", dev, mixture, sources,
+                                MASK_CONFIG, steps=1, detail=False, drop_out=0.0,
+                                fused_rnn=False)
+    expect_launches("rnn-stft-mask train, plain loop", plain["launches"])
+    agreement = first_step_agreement("rnn-stft-mask train", plain, g_plain, fused, g_fused,
+                                     "kernels vs plain loop")
+    dropped, _ = train_path("rnn-stft-mask (drop_out 0.5, the config's)", dev, mixture, sources,
+                            MASK_CONFIG, detail=False, falling=False)
+    expect_launches("rnn-stft-mask train, drop_out 0.5", dropped["launches"],
+                    lstm_fwd=6 * TRAIN_STEPS, lstm_bwd=6 * TRAIN_STEPS)
+    return {"train": fused, "plain_train": plain, "first_step_agreement": agreement,
+            "dropout_train": dropped}
+
+
+def sepformer_options_phase(dev) -> dict:
+    """configs/sepformer_clarity.yaml at full width and B 4 (si-sdr with
+    PIT), one train step each with attention_type RelPosMHAXL (plain
+    PyTorch: no attention launch), with RNN intra and inter blocks (plain
+    loops: no launch), and with remat on and off on the same batch and
+    weights: remat launches the attention forward twice a layer (the
+    recompute), its gradients agree with remat off's (cosine >=
+    REMAT_MIN_COSINE), and both peaks are kept.
+
+    RelPosMHAXL runs 4 + 4 layers a dual block, not 8 + 8: without the
+    sinusoidal positions a chunk's zero-padded frames reach the first
+    intra layers' LayerNorm (eps 1e-6) as all-zero rows, and the gradient
+    grows about a thousandfold a layer back through them, so at 8 layers
+    the f32 global norm overflows, in the JAX package as here (the
+    small-model gradients are held against it in
+    tests/test_torch_sepformer_options.py)."""
+    mixture, sources = sepformer_train_batch()
+    rows, grads = {}, {}
+    for tag, overrides, steps, fwd, bwd in (
+            ("RelPosMHAXL, 4 + 4 layers", {"attention_type": "RelPosMHAXL",
+                                           "intra_numlayers": 4, "inter_numlayers": 4}, 1, 0, 0),
+            ("rnn blocks", {"intra_block": "rnn", "inter_block": "rnn"}, 1, 0, 0),
+            ("remat off", {}, 2, SEP_LAUNCHES, SEP_LAUNCHES),
+            ("remat", {"remat": True}, 2, 2 * SEP_LAUNCHES, SEP_LAUNCHES)):
+        rows[tag], grads[tag] = train_path(f"sepformer {tag}", dev, mixture, sources, SEP_CONFIG,
+                                           "si-sdr", SEP_OPTIM, steps=steps, detail=False,
+                                           **overrides)
+        expect_launches(f"sepformer {tag}", rows[tag]["launches"], mha_fwd=steps * fwd,
+                        mha_bwd=steps * bwd)
+    agreement = first_step_agreement("sepformer remat", rows["remat off"], grads["remat off"],
+                                     rows["remat"], grads["remat"], "remat vs remat off",
+                                     REMAT_MIN_COSINE)
+    log(f"sepformer remat: peak {rows['remat']['peak_mem_gib']:.2f} GiB against "
+        f"{rows['remat off']['peak_mem_gib']:.2f} without; the second step "
+        f"{rows['remat']['step_ms'][1]:.1f} ms against {rows['remat off']['step_ms'][1]:.1f}")
+    return {**rows, "remat_agreement": agreement}
+
+
+def dccrn_real_lstm_phase(dev) -> dict:
+    """configs/dccrn_vbd.yaml with use_clstm = False (a real LSTM of 128 over
+    the flattened bottleneck, no kernel, as in JAX) on both execution paths:
+    one 10 s request each (the unfused path launches the STFT and mask-E
+    kernels, the fused one the block kernels too) and one train step each
+    at B 16 x 4 s; then the small f32 model on the card vs the CPU on both
+    paths."""
+    rng = np.random.default_rng(SEED + 14)
+    request = [utterance(rng, int(SECONDS * 16000))]
+    n = int(TRAIN_SECONDS * 16000)
+    wire_m = encode_wire_int16((0.1 * rng.standard_normal((DCCRN_TRAIN_BATCH, 1, n))
+                                ).astype(np.float32))
+    wire_s = encode_wire_int16((0.1 * rng.standard_normal((DCCRN_TRAIN_BATCH, 1, 1, n))
+                                ).astype(np.float32))
+    result = {}
+    for fused in (False, True):
+        tag = f"dccrn real LSTM {'fused' if fused else 'unfused'}"
+        cfg, model, spec = load_model(dev, use_clstm=False, use_fused_blocks=fused)
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        loss, norm = train_step(model, spec, opt, mixture, sources, "si-sdr", use_pit=True,
-                                device=device)
-        results.append((served, serve_launches, float(loss), float(norm), read_launches(),
-                        {k: p.grad.cpu() for k, p in model.named_parameters()},
-                        {k: v.cpu() for k, v in model.state_dict().items()}))
-    (served_c, serve_l, loss_c, norm_c, train_l, grads_c, state_c), (
-        served_p, _, loss_p, norm_p, _, grads_p, state_p) = results
-    serve_err = float(np.abs(served_c - served_p).max())
-    if served_c.shape != (1, 2, 2, 12000) or not np.isfinite(served_c).all() or (
-            serve_err > F32_ATOL):
-        fail(f"small f32 Sepformer served on the card vs CPU: shape {served_c.shape}, max abs "
-             f"err {serve_err} (bound {F32_ATOL})")
-    if serve_l["mha_fwd"] != 2 or train_l["mha_fwd"] != 2 or train_l["mha_bwd"] != 2:
-        fail(f"small f32 Sepformer launches: serve {serve_l}, train step {train_l}")
-    worst = {"loss": abs(loss_c - loss_p) / abs(loss_p),
-             "grad_norm": abs(norm_c - norm_p) / norm_p}
-    for what, got, ref, extra in (("grad", grads_c, grads_p, 0.0),
-                                  ("state", state_c, state_p, 2 * SEP_OPTIM["lr"])):
-        for key in ref:
-            leaf = max(ref[key].abs().max().item(), 1e-12)
-            worst[f"{what} {key}"] = ((got[key] - ref[key]).abs().max().item() - extra) / leaf
-    bad = {k: v for k, v in worst.items() if not np.isfinite(v) or v > LEAF_RTOL}
-    if bad:
-        fail(f"small f32 Sepformer train step, card vs CPU, beyond {LEAF_RTOL}: {bad}")
-    top = max(worst, key=worst.get)
-    log(f"sepformer reference: small f32 Sepformer (D 16) card vs CPU: served max abs err "
-        f"{serve_err:.2e} (bound {F32_ATOL}); one train step loss {worst['loss']:.2e}, grad norm "
-        f"{worst['grad_norm']:.2e} relative, worst leaf {top} {worst[top]:.2e} of its scale "
-        f"(bound {LEAF_RTOL}); launches serve {serve_l['mha_fwd']} forward, train "
-        f"{train_l['mha_fwd']} + {train_l['mha_bwd']}")
-    return {"serve_err": serve_err, "loss_rel": worst["loss"], "worst_leaf": top,
-            "worst_leaf_err": worst[top]}
+        outs, times = serve(model, spec, cfg, request, dev)
+        blocks = {"conv_block": 6, "deconv_block": 6} if fused else {}
+        expect_launches(f"{tag} serve", read_launches(), stft=1, mask_e=1, **blocks)
+        if outs[0].shape != request[0].shape or not np.isfinite(outs[0]).all():
+            fail(f"{tag} serve: output {outs[0].shape}, finite {np.isfinite(outs[0]).all()}")
+        serve_row = {"params": sum(p.numel() for p in model.parameters()),
+                     "request_ms": 1e3 * times[0],
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"{tag} serve (one 10 s request, with its warm-up): {serve_row}")
+        del model
+        train, _ = train_path(tag, dev, wire_m, wire_s, steps=1, detail=False, use_clstm=False,
+                              use_fused_blocks=fused)
+        expect_launches(f"{tag} train", train["launches"],
+                        **(BLOCK_STEP if fused else {"stft": 1, "mask_e": 1}))
+        result[tag] = {"serve": serve_row, "train": train}
+    # the batch as train_reference_phase draws it (a generator of its own)
+    rng = np.random.default_rng(SEED + 15)
+    mixture = (0.5 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, 1, 1, 8000))).astype(np.float32)
+    wav = (0.5 * np.random.default_rng(SEED + 16).standard_normal((1, 1, 8000))).astype(
+        np.float32)
+    for fused in (False, True):
+        cfg = Config({"model": dict(SMALL_FUSED, use_clstm=False, use_fused_blocks=fused,
+                                    segment=0.25, sample_rate=16000, win_length=512),
+                      "dset": {"sample_rate": 16000, "norm": "z-score"}})
+        blocks = {"conv_block": 6, "deconv_block": 6} if fused else {}
+        result[f"small {'fused' if fused else 'unfused'}"] = card_vs_cpu_step(
+            f"small f32 dccrn real LSTM {'fused' if fused else 'unfused'}", cfg, wav, mixture,
+            sources, dict(stft=1, mask_e=1, **blocks), BLOCK_STEP if fused else
+            {"stft": 1, "mask_e": 1},
+            zero_grad=lambda key: zero_grad_bias(key, len(SMALL_FUSED["kernel_num"])))
+    return result
 
 
 # -- the system's own entry point: data layer, Solver and CLI ----------------
@@ -2027,6 +2247,47 @@ def cli_phase(dev) -> dict:
         cli_loss = float(found.group(1))
         lap("cli_subprocess")
 
+        # mel-rnn (configs/mel_rnn_vbd.yaml copied, widths as shipped) on the
+        # same corpus: two epochs of 4 steps at B 16, then a resumed test
+        reset_launches()
+        mel_cfg = cli_config(MEL_CONFIG, tmp, vbd, epochs=2, all_steps=False, total_steps=4,
+                             **{"validation.total_steps": 2, "test.total_steps": 3,
+                                "test.metrics": ["sisdr", "stoi"], "test.num_show": 0})
+        mel_cfg.dset.split = [0.7, 0.15, 0.15]
+        mel_dir = os.path.join(tmp, "mel_train")
+        mel = port_main(mel_cfg, mode="train", return_solver=True, run_dir=mel_dir)
+        mel_train_launches = read_launches()
+        mel_losses = mel.scores["train_loss"] + mel.scores["val_loss"]
+        if ([e["train_steps"] for e in mel.epoch_stats] != [4, 4]
+                or not np.isfinite(mel_losses).all()
+                or "latest_model.ckpt" not in os.listdir(mel.checkpoint_dir)):
+            fail(f"cli: mel-rnn run: {mel.epoch_stats}, {mel.scores}, "
+                 f"{os.listdir(mel.checkpoint_dir)}")
+        if min(mel_train_launches["lstm_fwd"], mel_train_launches["lstm_bwd"]) == 0:
+            fail(f"cli: mel-rnn training did not launch the LSTM kernels: {mel_train_launches}")
+        mel_step_ms = 1e3 * mel.epoch_stats[1]["train_s"] / mel.epoch_stats[1]["train_steps"]
+        batch = next(iter(mel.train_loader))
+        mel_bare = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _ = train_step(mel.model, mel.spec, mel.optimizer, batch["mixture"],
+                                 batch["sources"], mel.loss_name, device=dev,
+                                 model_config=mel.config.model)
+            float(loss)
+            mel_bare.append(1e3 * (time.perf_counter() - t))
+        reset_launches()
+        mel_cfg.solver.resume = mel_dir
+        mel_test_dir = os.path.join(tmp, "mel_test")
+        mel_tester = port_main(mel_cfg, mode="test", return_solver=True, run_dir=mel_test_dir)
+        mel_test_launches = read_launches()
+        with open(os.path.join(mel_test_dir, "results.csv")) as handle:
+            mel_rows = handle.read().strip().splitlines()[1:]
+        mel_timing = mel_tester.test_timing
+        if len(mel_rows) != 3 or mel_test_launches["lstm_fwd"] == 0:
+            fail(f"cli: mel-rnn test: {len(mel_rows)} rows, launches {mel_test_launches}")
+        lap("mel_rnn")
+
         reset_launches()
         sep_cfg = cli_config(SEP_CONFIG, tmp, clarity, epochs=1, all_steps=False, total_steps=2,
                              **{"validation.total_steps": 1, "test.total_steps": 2,
@@ -2063,6 +2324,10 @@ def cli_phase(dev) -> dict:
         "launches": {"train": train_launches, "test": test_launches,
                      "sepformer_train": sep_train_launches, "sepformer_test": sep_test_launches},
         "sepformer_epoch_stats": sep.epoch_stats, "sepformer_test_timing": sep.test_timing,
+        "mel_rnn": {"epoch_stats": mel.epoch_stats, "scores": mel.scores,
+                    "solver_step_ms": mel_step_ms, "bare_step_ms": mel_bare,
+                    "test_timing": mel_timing,
+                    "launches": {"train": mel_train_launches, "test": mel_test_launches}},
     }
     log(f"cli: fixtures ({CLI_UTTERANCES} utterances of 4 to 10 s, {CLI_SCENES} Clarity scenes "
         f"of 4 s); seconds by part {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
@@ -2088,6 +2353,16 @@ def cli_phase(dev) -> dict:
         f"{test_launches['stft']} + {test_launches['mask_e']}")
     log(f"cli: python -m speech_enhancement_torch --mode validation: exit 0, validation loss "
         f"{cli_loss:.5f}, {cli_s:.1f} s (a new process: CUDA start, model build, 4 batches)")
+    mel_utt = {k: mel_timing[k] / mel_timing["utterances"]
+               for k in ("wall_s", "device_s", "scoring_s")}
+    log(f"cli: mel-rnn (configs/mel_rnn_vbd.yaml, f32, fused_rnn, B 16) train losses "
+        f"{mel.scores['train_loss']}, val {mel.scores['val_loss']}; Solver {mel_step_ms:.1f} ms "
+        f"a train step (epoch 1) vs bare train_step {statistics.median(mel_bare[1:]):.1f} ms "
+        f"(calls {[round(x, 1) for x in mel_bare]}); test (resumed) "
+        f"{mel_timing['utterances']} utterances, {mel_utt['wall_s']:.3f} s each (device "
+        f"{mel_utt['device_s']:.3f}, scoring {mel_utt['scoring_s']:.3f}); launches train "
+        f"{mel_train_launches['lstm_fwd']} + {mel_train_launches['lstm_bwd']}, test "
+        f"{mel_test_launches['lstm_fwd']}")
     log(f"cli: Sepformer (configs/sepformer_clarity.yaml, B 4, PIT) train losses "
         f"{sep.scores['train_loss']}, val {sep.scores['val_loss']}; {sep.epoch_stats}; test "
         f"{sep.test_timing}; mha launches train {sep_train_launches['mha_fwd']} + "
@@ -2148,6 +2423,10 @@ def main() -> int:
     phase("rnn_stft_mask_slice", rnn_stft_mask_slice_phase, dev)
     sep = phase("sepformer_slice", sepformer_slice_phase, dev)
     sep_train = phase("sepformer_train", sepformer_train_phase, dev)
+    phase("mel_rnn", mel_rnn_phase, dev)
+    phase("rnn_stft_mask_train", rnn_stft_mask_train_phase, dev)
+    phase("sepformer_options", sepformer_options_phase, dev)
+    phase("dccrn_real_lstm", dccrn_real_lstm_phase, dev)
     phase("cli", cli_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2167,8 +2446,8 @@ def main() -> int:
         entry["launches"] = source[name]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels.values()]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
+    log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,10 +1,23 @@
-"""Carry the JAX package's DCCRN, CRN, RNN STFT-mask and Sepformer weights into the port.
+"""Carry the JAX package's DCCRN, CRN, MelRNN, RNN STFT-mask and Sepformer weights into the port.
 
-``crn_state_from_jax``, ``rnn_stft_mask_state_from_jax`` and
-``sepformer_state_from_jax`` invert the JAX package's
-``crn_from_torch_state`` / ``rnn_stft_mask_from_torch_state`` /
-``sepformer_from_torch_state`` exactly; the DCCRN converter is described
-below.
+``crn_state_from_jax``, ``mel_rnn_state_from_jax``,
+``rnn_stft_mask_state_from_jax`` and ``sepformer_state_from_jax`` invert
+the JAX package's ``crn_from_torch_state`` / ``mel_rnn_from_torch_state`` /
+``rnn_stft_mask_from_torch_state`` / ``sepformer_from_torch_state``
+exactly (a vanilla-RNN layer's single bias ``b`` lands in ``bias_ih`` with
+``bias_hh`` zero, whose sum the JAX importer folds back); the DCCRN
+converter is described below.
+
+The JAX importers have no key layout for three options, so the port names
+them here. Sepformer's ``RelPosMHAXL`` and RNN blocks take the reference's
+speechbrain module names that ``SURVEY.md`` records (``Transformer.py``'s
+``RelPosMHAXL``: ``self_att.in_proj_weight`` [3E, E] packed per head as
+the flax ``in_proj``, ``self_att.linear_pos.weight``,
+``self_att.pos_bias_{u,v}`` [D, H], ``self_att.out_proj.*``; ``basic.py``'s
+RNN and Linear wrappers: ``{intra,inter}_mdl.mdl.rnn.*_l{k}[_reverse]`` and
+``{intra,inter}_linear.w.*``). DCCRN's ``use_clstm=False`` branch, whose
+reference keys no survey records, takes the flax names: ``lstm_{k}`` as
+``lstm.{k}.*_l0`` and ``transform`` as ``transform.*``.
 
 ``dccrn_state_from_jax(params, batch_stats)`` takes the flax variable trees
 (as numpy arrays, or anything ``np.asarray`` reads) and returns a
@@ -39,7 +52,8 @@ _CBN_STATS = (("mean_r", "RMr"), ("mean_i", "RMi"), ("vrr", "RVrr"),
 
 
 def _t(value) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(value, dtype=np.float32)))
+    """A writable C-ordered f32 copy (a JAX array's numpy view is read-only)."""
+    return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
 
 
 def _block(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping, stats: Mapping,
@@ -67,6 +81,13 @@ def _lstm(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping) -> None:
     sd[f"{prefix}.bias_hh_l0"] = _t(params["b_hh"])
 
 
+def _linear(sd: Dict[str, torch.Tensor], prefix: str, tree: Mapping) -> None:
+    """flax Dense -> torch ``nn.Linear`` ``{prefix}.weight`` [out, in] and ``.bias``."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
 def dccrn_state_from_jax(params: Mapping, batch_stats: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """flax DCCRN (params, batch_stats) -> the port's DCCRN ``state_dict``."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
@@ -82,8 +103,12 @@ def dccrn_state_from_jax(params: Mapping, batch_stats: Mapping) -> "OrderedDict[
         _lstm(sd, f"enhance.{layer}.imag_lstm", block["imag_lstm"])
         for part, key in (("r_trans", "proj_r"), ("i_trans", "proj_i")):
             if key in block:
-                sd[f"enhance.{layer}.{part}.weight"] = _t(np.asarray(block[key]["kernel"]).T)
-                sd[f"enhance.{layer}.{part}.bias"] = _t(block[key]["bias"])
+                _linear(sd, f"enhance.{layer}.{part}", block[key])
+    n_lstm = sum(1 for key in params if key.startswith("lstm_"))
+    for layer in range(n_lstm):  # use_clstm=False
+        _lstm(sd, f"lstm.{layer}", params[f"lstm_{layer}"])
+    if "transform" in params:
+        _linear(sd, "transform", params["transform"])
     for i in range(n_dec):
         _block(sd, f"decoder.{i}", params[f"dec_{i}"], batch_stats.get(f"dec_{i}", {}),
                transposed=True)
@@ -98,13 +123,29 @@ def _bn(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping, stats: Mappin
 
 
 def _stack_layer(sd: Dict[str, torch.Tensor], name: str, params: Mapping) -> None:
-    """One flax LSTM layer -> torch ``nn.LSTM`` keys ``*_{name}`` (``name`` is
-    ``l{k}`` or ``l{k}_reverse``)."""
+    """One flax LSTM, GRU or vanilla-RNN layer -> torch ``nn.LSTM`` /
+    ``nn.GRU`` / ``nn.RNN`` keys ``*_{name}`` (``name`` is ``l{k}`` or
+    ``l{k}_reverse``). A vanilla layer's single ``b`` becomes ``bias_ih``,
+    with ``bias_hh`` zero."""
     sd[f"weight_ih_{name}"] = _t(np.asarray(params["w_ih"]).T)
     sd[f"weight_hh_{name}"] = _t(np.asarray(params["w_hh"]).T)
     if "b_ih" in params:
         sd[f"bias_ih_{name}"] = _t(params["b_ih"])
         sd[f"bias_hh_{name}"] = _t(params["b_hh"])
+    elif "b" in params:
+        sd[f"bias_ih_{name}"] = _t(params["b"])
+        sd[f"bias_hh_{name}"] = torch.zeros_like(sd[f"bias_ih_{name}"])
+
+
+def _rnn_stack(sd: Dict[str, torch.Tensor], prefix: str, rnn: Mapping) -> None:
+    """flax ``RNNStack`` (``l{k}_fwd``, ``l{k}_bwd``) -> ``{prefix}.*_l{k}[_reverse]``."""
+    n_layers = sum(1 for key in rnn if key.endswith("_fwd"))
+    for k in range(n_layers):
+        for key, suffix in ((f"l{k}_fwd", ""), (f"l{k}_bwd", "_reverse")):
+            if key in rnn:
+                layer_sd: Dict[str, torch.Tensor] = {}
+                _stack_layer(layer_sd, f"l{k}{suffix}", rnn[key])
+                sd.update({f"{prefix}.{name}": v for name, v in layer_sd.items()})
 
 
 def crn_state_from_jax(params: Mapping, batch_stats: Mapping) -> "OrderedDict[str, torch.Tensor]":
@@ -140,24 +181,49 @@ def rnn_stft_mask_state_from_jax(params: Mapping, batch_stats: Mapping
     the exact inverse of the JAX package's ``rnn_stft_mask_from_torch_state``
     (``rnn.*_l{k}[_reverse]``, ``batchnorm.*``, ``fc_layers.0.*``)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    rnn = params["rnn"]
-    n_layers = sum(1 for key in rnn if key.endswith("_fwd"))
-    for k in range(n_layers):
-        for key, suffix in ((f"l{k}_fwd", ""), (f"l{k}_bwd", "_reverse")):
-            if key in rnn:
-                layer_sd: Dict[str, torch.Tensor] = {}
-                _stack_layer(layer_sd, f"l{k}{suffix}", rnn[key])
-                sd.update({f"rnn.{name}": v for name, v in layer_sd.items()})
+    _rnn_stack(sd, "rnn", params["rnn"])
     _bn(sd, "batchnorm", params["bn"], batch_stats["bn"])
-    sd["fc_layers.0.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
-    sd["fc_layers.0.bias"] = _t(params["fc"]["bias"])
+    _linear(sd, "fc_layers.0", params["fc"])
     return sd
+
+
+def mel_rnn_state_from_jax(params: Mapping, batch_stats: Mapping
+                           ) -> "OrderedDict[str, torch.Tensor]":
+    """flax MelRNN (params, batch_stats) -> the port's ``state_dict``: the
+    exact inverse of the JAX package's ``mel_rnn_from_torch_state``
+    (``rnn.*_l{k}``, ``batchnorm.*``, ``fc_layers.{0,2}.*``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _rnn_stack(sd, "rnn", params["rnn"])
+    _bn(sd, "batchnorm", params["bn"], batch_stats["bn"])
+    _linear(sd, "fc_layers.0", params["fc1"])
+    _linear(sd, "fc_layers.2", params["fc2"])
+    return sd
+
+
+def _attention(sd: Dict[str, torch.Tensor], p: str, mha: Mapping) -> None:
+    """A layer's flax attention -> ``{p}.self_att.*``: flax's MHA as torch
+    ``nn.MultiheadAttention`` under the wrapper's ``.att`` (query, key and
+    value rows stacked in ``in_proj_weight`` [3E, E]), or RelPosMHAXL."""
+    if "in_proj" in mha:  # RelPosMHAXL: the packed kernel as it is
+        sd[f"{p}.self_att.in_proj_weight"] = _t(np.asarray(mha["in_proj"]["kernel"]).T)
+        _linear(sd, f"{p}.self_att.linear_pos", mha["linear_pos"])
+        for name in ("pos_bias_u", "pos_bias_v"):
+            sd[f"{p}.self_att.{name}"] = _t(mha[name])
+        _linear(sd, f"{p}.self_att.out_proj", mha["out_proj"])
+        return
+    embed = np.asarray(mha["query"]["kernel"]).shape[0]
+    sd[f"{p}.self_att.att.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(mha[n]["kernel"]).reshape(embed, -1).T for n in ("query", "key", "value")]))
+    sd[f"{p}.self_att.att.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(mha[n]["bias"]).reshape(-1) for n in ("query", "key", "value")]))
+    sd[f"{p}.self_att.att.out_proj.weight"] = _t(
+        np.asarray(mha["out"]["kernel"]).reshape(-1, embed).T)
+    sd[f"{p}.self_att.att.out_proj.bias"] = _t(mha["out"]["bias"])
 
 
 def _transformer_block(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping) -> None:
     """flax SBTransformerBlock -> the reference's ``{prefix}.layers.{j}.*`` and
-    ``{prefix}.norm.norm.*`` (torch ``nn.MultiheadAttention`` packing: query,
-    key and value rows stacked in ``in_proj_weight`` [3E, E])."""
+    ``{prefix}.norm.norm.*``."""
     def ln(key, tree):
         sd[f"{key}.norm.weight"] = _t(tree["scale"])
         sd[f"{key}.norm.bias"] = _t(tree["bias"])
@@ -165,18 +231,9 @@ def _transformer_block(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping
     n_layers = sum(1 for key in params if key.startswith("layer_"))
     for j in range(n_layers):
         layer, p = params[f"layer_{j}"], f"{prefix}.layers.{j}"
-        mha = layer["mha"]
-        embed = np.asarray(mha["query"]["kernel"]).shape[0]
-        sd[f"{p}.self_att.att.in_proj_weight"] = _t(np.concatenate(
-            [np.asarray(mha[n]["kernel"]).reshape(embed, -1).T for n in ("query", "key", "value")]))
-        sd[f"{p}.self_att.att.in_proj_bias"] = _t(np.concatenate(
-            [np.asarray(mha[n]["bias"]).reshape(-1) for n in ("query", "key", "value")]))
-        sd[f"{p}.self_att.att.out_proj.weight"] = _t(
-            np.asarray(mha["out"]["kernel"]).reshape(-1, embed).T)
-        sd[f"{p}.self_att.att.out_proj.bias"] = _t(mha["out"]["bias"])
+        _attention(sd, p, layer["mha"])
         for name, key in (("ffn1", "0"), ("ffn2", "3")):
-            sd[f"{p}.pos_ffn.ffn.{key}.weight"] = _t(np.asarray(layer[name]["kernel"]).T)
-            sd[f"{p}.pos_ffn.ffn.{key}.bias"] = _t(layer[name]["bias"])
+            _linear(sd, f"{p}.pos_ffn.ffn.{key}", layer[name])
         ln(f"{p}.norm1", layer["ln1"])
         ln(f"{p}.norm2", layer["ln2"])
     ln(f"{prefix}.norm", params["norm"])
@@ -187,7 +244,8 @@ def sepformer_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]
     inverse of the JAX package's ``sepformer_from_torch_state`` (Conv1d /
     1x1-conv / Conv2d kernels transposed back, the decoder's
     ConvTranspose1d kernel [in, out, K] flipped in time, gLN gamma / beta as
-    ``weight`` / ``bias``)."""
+    ``weight`` / ``bias``); RelPosMHAXL layers and RNN blocks, which that
+    importer does not map, under the keys the module docstring names."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
     def kernel(tree):
@@ -203,8 +261,12 @@ def sepformer_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]
     n_blocks = sum(1 for key in params if key.startswith("dual_"))
     for i in range(n_blocks):
         block, p = params[f"dual_{i}"], f"masknet.dual_mdl.{i}"
-        _transformer_block(sd, f"{p}.intra_mdl.mdl", block["intra"])
-        _transformer_block(sd, f"{p}.inter_mdl.mdl", block["inter"])
+        for path in ("intra", "inter"):
+            if f"{path}_linear" in block:  # an SBRNNBlock and its projection
+                _rnn_stack(sd, f"{p}.{path}_mdl.mdl.rnn", block[path]["rnn"])
+                _linear(sd, f"{p}.{path}_linear.w", block[f"{path}_linear"])
+            else:
+                _transformer_block(sd, f"{p}.{path}_mdl.mdl", block[path])
         gln(f"{p}.intra_norm", block["intra_norm"])
         gln(f"{p}.inter_norm", block["inter_norm"])
     sd["masknet.prelu.weight"] = _t(params["prelu"]["alpha"])

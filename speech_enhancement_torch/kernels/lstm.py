@@ -261,7 +261,8 @@ def lstm_bwd(gates: torch.Tensor, c_seq: torch.Tensor, c_prev: torch.Tensor,
     gates [T, B, 4H], c_seq, c_prev, dout [T, B, H] and w_hh [H, 4H] in one
     i/o dtype; dh_last, dc_last [B, H] (any float dtype, read as f32). A
     CUDA tensor launches ``csrc/lstm_bwd.cu`` once for all T steps (counted
-    in ``lstm_bwd.launches``); a CPU tensor runs :func:`lstm_bwd_plain`.
+    in ``lstm_bwd.launches``, and the reversed ones also in
+    ``lstm_bwd.reverse_launches``); a CPU tensor runs :func:`lstm_bwd_plain`.
     """
     if gates.dim() != 3 or gates.shape[-1] % 4 or gates.shape[0] == 0:
         raise ValueError(f"lstm_bwd: want gates [T > 0, B, 4H], got {tuple(gates.shape)}")
@@ -288,12 +289,14 @@ def lstm_bwd(gates: torch.Tensor, c_seq: torch.Tensor, c_prev: torch.Tensor,
                          dc.data_ptr(), dgates.data_ptr(), bar.data_ptr(), steps,
                          batch, hidden, int(reverse)], gates)
     lstm_bwd.launches += 1
+    lstm_bwd.reverse_launches += int(reverse)
     return dgates, dh, dc
 
 
 lstm_fwd.launches = 0
 lstm_fwd.reverse_launches = 0
 lstm_bwd.launches = 0
+lstm_bwd.reverse_launches = 0
 
 
 def shift_prev(seq: torch.Tensor, first: torch.Tensor, reverse: bool) -> torch.Tensor:

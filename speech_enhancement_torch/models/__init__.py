@@ -1,6 +1,6 @@
 """Model registry of the port (counterpart of speech_enhancement_tpu/models/__init__.py).
 
-DCCRN, CRN, the RNN STFT-mask separator and Sepformer are ported; every other family
+DCCRN, CRN, MelRNN, the RNN STFT-mask separator and Sepformer are ported; every other family
 of the JAX package's registry raises an error that names the slice that
 ports it.
 """
@@ -16,16 +16,17 @@ from torch import nn
 from speech_enhancement_torch.device import DeviceLike, resolve_device
 from speech_enhancement_torch.models.crn import CRN
 from speech_enhancement_torch.models.dccrn import DCCRN
+from speech_enhancement_torch.models.mel_rnn import MelRNN
 from speech_enhancement_torch.models.sepformer import Sepformer
 from speech_enhancement_torch.models.stft_rnn import RNNSTFTMask
 from speech_enhancement_torch.models.types import SignalSpec
 
-_REGISTRY = {"dccrn": DCCRN, "crn": CRN, "rnn-stft-mask": RNNSTFTMask, "sepformer": Sepformer}
+_REGISTRY = {"dccrn": DCCRN, "crn": CRN, "mel-rnn": MelRNN, "rnn-stft-mask": RNNSTFTMask,
+             "sepformer": Sepformer}
 
 # Families of the JAX package not ported yet, and the slice that ports each
 # (the order of ROADMAP.md's queue of slices).
 _LATER = {
-    "mel-rnn": "the mel-rnn slice (with ops/mel.py)",
     "dnn": "the slice that ports the rest of the zoo",
     "unet": "the slice that ports the rest of the zoo",
     "dcunet": "the slice that ports the rest of the zoo",

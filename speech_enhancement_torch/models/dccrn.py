@@ -6,7 +6,9 @@ train() forward):
   wav -> ConvSTFT (win 400 / hop 100 / fft 512, non-centred, Hann)
       -> drop DC bin, complex encoder x6 (complex conv k=(5,2) s=(2,1),
          causal time pad, complex BN, PReLU)
-      -> complex LSTM x2 (hidden rnn_units/2 per part, final projection)
+      -> complex LSTM x2 (hidden rnn_units/2 per part, final projection);
+         with ``use_clstm=False`` a real LSTM stack of rnn_units over the
+         flattened [B, T, 2C * D] (channels [r..., i...]) and a Linear back
       -> complex decoder x6 (complex transposed conv, complex-cat skips,
          time chomp)
       -> mask head (modes E / C / R) -> ConviSTFT (pinv basis,
@@ -39,7 +41,11 @@ BN statistics in f32, mask head and synthesis in f32. Parameters stay f32.
 Parameter names follow the reference torch DCCRN (``encoder.{i}.0.
 real_conv.weight``, ``encoder.{i}.1.Wrr``, ``encoder.{i}.2.weight``,
 ``enhance.{l}.real_lstm.weight_ih_l0``...), so ``compat`` converters on
-both sides map weights one to one.
+both sides map weights one to one. The ``use_clstm=False`` branch, whose
+reference keys no importer maps, is named after the flax modules:
+``lstm.{l}.weight_ih_l0``... and ``transform.{weight,bias}``. As in JAX,
+its LSTM layers (with bias, no ``fused``) and the Linear run in their
+input's dtype promoted to f32, whatever ``dtype`` says.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from speech_enhancement_torch.ops.complex_conv import (complex_cat, complex_conv
                                                        hwio_from_conv, hwio_from_deconv)
 from speech_enhancement_torch.ops.complex_ops import ComplexBatchNorm, stats_from_partials
 from speech_enhancement_torch.ops.frame import frame_signal, overlap_add
-from speech_enhancement_torch.ops.rnn import ComplexLSTM, lecun_normal
+from speech_enhancement_torch.ops.rnn import ComplexLSTM, Linear, LSTMLayer, lecun_normal
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -247,10 +253,6 @@ class DCCRN(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if not use_clstm:
-            raise NotImplementedError(
-                "DCCRN use_clstm=False (real LSTM + transform) is not ported yet; "
-                "the port's DCCRN runs the complex LSTM")
         if not isinstance(use_fused_blocks, bool):
             raise ValueError(
                 f"use_fused_blocks takes True or False, got {use_fused_blocks!r} (the "
@@ -266,6 +268,7 @@ class DCCRN(nn.Module):
         self.use_stft_kernel = use_stft_kernel
         self.use_mask_kernel = use_mask_kernel
         self.use_fused_blocks = use_fused_blocks
+        self.use_clstm = use_clstm
         self.compute_dtype = _DTYPES[dtype]
 
         fwd, inv, window = _stft_bases(win_len, fft_len)
@@ -284,11 +287,18 @@ class DCCRN(nn.Module):
             dims = (dims - 1) // 2 + 1
         per_part = kernel_num[-1] // 2
         hidden = rnn_units // 2
-        self.enhance = nn.ModuleList(
-            ComplexLSTM(per_part * dims if idx == 0 else hidden, hidden,
-                        projection_dim=per_part * dims if idx == rnn_layers - 1 else None,
-                        dtype=cd, generator=generator)
-            for idx in range(rnn_layers))
+        if use_clstm:
+            self.enhance = nn.ModuleList(
+                ComplexLSTM(per_part * dims if idx == 0 else hidden, hidden,
+                            projection_dim=per_part * dims if idx == rnn_layers - 1 else None,
+                            dtype=cd, generator=generator)
+                for idx in range(rnn_layers))
+        else:
+            width = kernel_num[-1] * dims
+            self.lstm = nn.ModuleList(
+                LSTMLayer(width if idx == 0 else rnn_units, rnn_units, generator=generator)
+                for idx in range(rnn_layers))
+            self.transform = Linear(rnn_units, width, generator)
         dec_out = list(kernel_num[::-1][1:]) + [2]
         trunk = kernel_num[-1]
         decoder = []
@@ -329,6 +339,9 @@ class DCCRN(nn.Module):
         if self.use_fused_blocks:
             return self._recur_fused(x2)
         batch, channels2, dims, frames = x2.shape
+        if not self.use_clstm:  # [B, 2C, D, T] -> [B, T, 2C * D] and back
+            flat = self._real_lstm(x2.permute(0, 3, 1, 2).reshape(batch, frames, -1))
+            return flat.reshape(batch, frames, channels2, dims).permute(0, 2, 3, 1)
         channels = channels2 // 2
         xr, xi = _split(x2)
         # [B, C, D, T] -> [B, T, C*D] (C outer, D inner: the reference order)
@@ -386,10 +399,21 @@ class DCCRN(nn.Module):
             outs.append(_FusedSkip(y, f, c2out, coef, alpha))
         return outs
 
+    def _real_lstm(self, flat: torch.Tensor) -> torch.Tensor:
+        """``use_clstm=False``: the LSTM layers, then the Linear in f32 (flax
+        Dense promotes its input against the f32 kernel), on [B, T, 2C * D]."""
+        for layer in self.lstm:
+            flat, _ = layer(flat)
+        return self.transform(flat, torch.promote_types(flat.dtype, torch.float32))
+
     def _recur_fused(self, last: "_FusedSkip") -> torch.Tensor:
         batch, _, n_time = last.y.shape
         c = last.c2 // 2
         z = pointwise(last.y.view(batch, last.f, last.c2, n_time), *last.coef, last.alpha)
+        if not self.use_clstm:  # [B, F, 2C, T] -> [B, T, 2C * F] and back
+            flat = self._real_lstm(z.permute(0, 3, 2, 1).reshape(batch, n_time, -1))
+            x = flat.reshape(batch, n_time, last.c2, last.f).permute(0, 3, 2, 1)
+            return x.reshape(batch, last.f * last.c2, n_time).to(self.compute_dtype)
         # [B, F, C, T] -> [B, T, C*F] (C outer, F inner: the reference order)
         r_in = z[:, :, :c].permute(0, 3, 2, 1).reshape(batch, n_time, c * last.f)
         i_in = z[:, :, c:].permute(0, 3, 2, 1).reshape(batch, n_time, c * last.f)

@@ -13,7 +13,16 @@ speech_enhancement_tpu/models/sepformer.py).
 
 Transformer layers are pre-norm (or post-norm) self-attention and a
 position-wise feed-forward, with sinusoidal positions added at each
-stack's input and a final LayerNorm (eps 1e-6) after it.
+stack's input and a final LayerNorm (eps 1e-6) after it. With
+``attention_type="RelPosMHAXL"`` the attention is Transformer-XL's
+relative-position attention (plain PyTorch, as the JAX module is plain
+einsums): no positions are added, and every layer reads the same relative
+embeddings. ``intra_block`` / ``inter_block="rnn"`` replace a path's
+transformer stack by a bidirectional LSTM stack (the plain loop in the
+input's dtype, as the JAX block passes neither ``fused`` nor a dtype) and a
+Linear back to the model width. ``remat=True`` recomputes each transformer
+layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
+which runs the attention kernel's forward again.
 
 Precision (``dtype="bfloat16"``) follows the flax module layer by layer:
 dense layers, convolutions and attention compute in bf16 and return bf16;
@@ -34,7 +43,12 @@ Parameter names are the reference torch Sepformer's
 mdl.layers.{j}.self_att.att.in_proj_weight``, ``...norm1.norm``,
 ``...pos_ffn.ffn.{0,3}``, ``masknet.conv2d``, ``masknet.output.0``,
 ``decoder``), so ``compat.sepformer_state_from_jax`` and the JAX
-package's ``sepformer_from_torch_state`` map weights one to one.
+package's ``sepformer_from_torch_state`` map weights one to one. The
+options that importer does not map are named after the reference's
+speechbrain modules (``SURVEY.md``): RelPosMHAXL's ``...self_att.
+in_proj_weight`` [3E, E] (q, k, v packed per head), ``self_att.linear_pos``,
+``self_att.pos_bias_{u,v}`` [D, H], ``self_att.out_proj``; an RNN block's
+``{intra,inter}_mdl.mdl.rnn.*_l{k}[_reverse]`` and ``{intra,inter}_linear.w``.
 """
 
 from __future__ import annotations
@@ -47,14 +61,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from speech_enhancement_torch.kernels.attention import fused_mha_packed
 from speech_enhancement_torch.models.types import WAV_MULTI, SignalSpec
 from speech_enhancement_torch.ops.norms import GlobalLayerNorm
-from speech_enhancement_torch.ops.rnn import lecun_normal
+from speech_enhancement_torch.ops.rnn import RNNStack, lecun_normal
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_LATER = "the Sepformer-options slice (ROADMAP.md) ports it"
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,6 +79,27 @@ def sinusoidal_positions(length: int, d_model: int) -> np.ndarray:
     out[:, 0::2] = np.sin(pos * div)
     out[:, 1::2] = np.cos(pos * div[: (d_model + 1) // 2])
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def relative_positions(length: int, d_model: int) -> np.ndarray:
+    """Sinusoidal embeddings [2L - 1, d_model] of the offsets L-1 .. -(L-1),
+    positive offsets first (the reference RelPosMHAXL's ``pos_embs``)."""
+    pos = np.arange(length - 1, -length, -1, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d_model, 2) * (-math.log(10000.0) / d_model))
+    out = np.zeros((2 * length - 1, d_model), np.float32)
+    out[:, 0::2] = np.sin(pos * div)
+    out[:, 1::2] = np.cos(pos * div[: (d_model + 1) // 2])
+    return out
+
+
+def _rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL's relative shift: scores [B, H, L, 2L-1] against the
+    offset-ordered positions -> [B, H, L, L], where out[..., i, j] is the
+    score at offset i - j."""
+    b, h, qlen, pos_len = x.shape
+    x = F.pad(x, (1, 0)).reshape(b, h, pos_len + 1, qlen)
+    return x[:, :, 1:].reshape(b, h, qlen, pos_len)[..., : pos_len // 2 + 1]
 
 
 def _segment(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, int]:
@@ -169,6 +204,49 @@ class MultiheadAttention(nn.Module):
         return _dense(o, att.out_proj.weight, att.out_proj.bias, cd)
 
 
+class RelPosMHAXL(nn.Module):
+    """Transformer-XL relative-position self-attention (the JAX
+    ``RelPosMHAXL``): a packed q, k, v projection without bias (split per
+    head), the position projection ``linear_pos`` without bias, the learned
+    content and position biases ``pos_bias_u`` / ``pos_bias_v`` [D, H], the
+    relative shift, the reference's 1 / sqrt(embed_dim) scale (not per head),
+    the softmax in f32 and ``out_proj``; the products in the compute dtype."""
+
+    def __init__(self, d_model: int, nhead: int, dtype: torch.dtype, generator):
+        super().__init__()
+        head = d_model // nhead
+        if head * nhead != d_model:
+            raise ValueError(f"d_model {d_model} is not a multiple of {nhead} heads")
+        self.nhead, self.dtype = nhead, dtype
+        self.in_proj_weight = nn.Parameter(lecun_normal((3 * d_model, d_model), d_model,
+                                                        generator))
+        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+        _init(self.linear_pos, d_model, generator)
+        bound = math.sqrt(6.0 / (head + nhead))  # flax xavier_uniform on [D, H]
+        self.pos_bias_u = nn.Parameter(torch.empty(head, nhead).uniform_(-bound, bound,
+                                                                         generator=generator))
+        self.pos_bias_v = nn.Parameter(torch.empty(head, nhead).uniform_(-bound, bound,
+                                                                         generator=generator))
+        self.out_proj = nn.Linear(d_model, d_model)
+        _init(self.out_proj, d_model, generator)
+
+    def forward(self, x: torch.Tensor, pos_embs: torch.Tensor) -> torch.Tensor:
+        """x [B, L, E], pos_embs [2L - 1, E] -> [B, L, E] in the compute dtype."""
+        cd, heads = self.dtype, self.nhead
+        batch, length, embed = x.shape
+        qkv = _dense(x, self.in_proj_weight, None, cd).reshape(batch, length, heads, -1)
+        q, k, v = qkv.chunk(3, dim=-1)  # [B, L, H, D] each
+        p_k = _dense(pos_embs, self.linear_pos.weight, None, cd).reshape(-1, heads,
+                                                                         embed // heads)
+        content = torch.einsum("blhd,bmhd->bhlm", q + self.pos_bias_u.t().to(cd), k)
+        position = _rel_shift(torch.einsum("blhd,mhd->bhlm", q + self.pos_bias_v.t().to(cd),
+                                           p_k))
+        score = (content + position) * (1.0 / math.sqrt(embed))
+        probs = torch.softmax(score.float(), dim=-1).to(cd)
+        out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(batch, length, embed)
+        return _dense(out, self.out_proj.weight, self.out_proj.bias, cd)
+
+
 class _FeedForward(nn.Module):
     """Position-wise feed-forward under the reference's ``ffn.{0,3}`` keys
     (its ``ffn.1`` is the activation, ``ffn.2`` a dropout of rate 0)."""
@@ -194,82 +272,149 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, d_ffn: int, norm_before: bool = True,
                  fused_attention: bool = True, ffn_activation: str = "relu",
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, attention_type: str = "regularMHA",
+                 generator=None):
         super().__init__()
         if ffn_activation not in ("relu", "gelu"):
             raise ValueError(f"ffn_activation must be relu or gelu, got {ffn_activation!r}")
         self.norm_before = norm_before
-        self.self_att = MultiheadAttention(d_model, nhead, fused_attention, dtype, generator)
+        self.relative = attention_type == "RelPosMHAXL"
+        self.self_att = (RelPosMHAXL(d_model, nhead, dtype, generator) if self.relative else
+                         MultiheadAttention(d_model, nhead, fused_attention, dtype, generator))
         self.pos_ffn = _FeedForward(d_model, d_ffn, ffn_activation, dtype, generator)
         self.norm1 = _LayerNorm(d_model)
         self.norm2 = _LayerNorm(d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _attend(self, x: torch.Tensor, pos_embs: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.self_att(x, pos_embs) if self.relative else self.self_att(x)
+
+    def forward(self, x: torch.Tensor, pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.norm_before:
-            x = x + self.self_att(self.norm1(x))
+            x = x + self._attend(self.norm1(x), pos_embs)
             return x + self.pos_ffn(self.norm2(x))
-        x = self.norm1(x + self.self_att(x))
+        x = self.norm1(x + self._attend(x, pos_embs))
         return self.norm2(x + self.pos_ffn(x))
 
 
 class _TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int,
-                 fused_attention: bool, dtype: torch.dtype, generator):
+                 fused_attention: bool, dtype: torch.dtype, attention_type: str, generator):
         super().__init__()
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(d_model, nhead, d_ffn, fused_attention=fused_attention,
-                                    dtype=dtype, generator=generator)
+                                    dtype=dtype, attention_type=attention_type,
+                                    generator=generator)
             for _ in range(num_layers)])
         self.norm = _LayerNorm(d_model)
 
 
 class SBTransformerBlock(nn.Module):
     """A stack of pre-norm transformer layers over [B', L, N]: sinusoidal
-    positions added in the input's dtype, the layers, then the final
-    LayerNorm (eps 1e-6)."""
+    positions added in the input's dtype (or, with RelPosMHAXL, relative
+    embeddings handed to every layer), the layers, each recomputed in the
+    backward pass with ``remat``, then the final LayerNorm (eps 1e-6)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int = 2048,
                  fused_attention: bool = True, dtype: torch.dtype = torch.float32,
-                 generator=None):
+                 attention_type: str = "regularMHA", remat: bool = False, generator=None):
         super().__init__()
+        self.relative = attention_type == "RelPosMHAXL"
+        self.remat = remat
         self.mdl = _TransformerEncoder(num_layers, d_model, nhead, d_ffn, fused_attention, dtype,
-                                       generator)
+                                       attention_type, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pos = torch.from_numpy(sinusoidal_positions(x.shape[1], x.shape[2]))
-        x = x + pos.to(device=x.device, dtype=x.dtype)
+        pos_embs = None
+        if self.relative:
+            pos_embs = torch.from_numpy(relative_positions(x.shape[1], x.shape[2])).to(x.device)
+        else:
+            pos = torch.from_numpy(sinusoidal_positions(x.shape[1], x.shape[2]))
+            x = x + pos.to(device=x.device, dtype=x.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.mdl.layers:
-            x = layer(x)
+            x = (checkpoint(layer, x, pos_embs, use_reentrant=False) if remat
+                 else layer(x, pos_embs))
         return self.mdl.norm(x)
 
 
+class _RNN(nn.Module):
+    """The reference's speechbrain RNN wrapper, whose torch module is ``.rnn``."""
+
+    def __init__(self, rnn: RNNStack):
+        super().__init__()
+        self.rnn = rnn
+
+
+class SBRNNBlock(nn.Module):
+    """A (bi)directional LSTM stack over [B', L, N] (the JAX ``SBRNNBlock``),
+    in its input's dtype, under the reference's ``mdl.rnn`` keys."""
+
+    def __init__(self, input_size: int, hidden: int, num_layers: int, bidirectional: bool,
+                 generator=None):
+        super().__init__()
+        self.mdl = _RNN(RNNStack("lstm", input_size, hidden, num_layers=num_layers,
+                                 bidirectional=bidirectional, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mdl.rnn(x)
+
+
+class _SBLinear(nn.Module):
+    """The reference's speechbrain Linear wrapper, whose torch module is ``.w``."""
+
+    def __init__(self, in_features: int, out_features: int, generator):
+        super().__init__()
+        self.w = nn.Linear(in_features, out_features)
+        _init(self.w, in_features, generator)
+
+
 class DualComputationBlock(nn.Module):
-    """Intra-chunk then inter-chunk transformer stacks over [B, S, K, N], each
-    followed by a gLN and a skip (the intra one optional)."""
+    """Intra-chunk then inter-chunk paths over [B, S, K, N], each a
+    transformer stack or an RNN block and its Linear, followed by a gLN and a
+    skip (the intra one optional)."""
 
     def __init__(self, d_model: int, intra_layers: int, inter_layers: int, intra_nhead: int,
                  inter_nhead: int, intra_dffn: int, inter_dffn: int,
-                 fused_attention: bool = True, skip_around_intra: bool = True,
+                 intra_block: str = "transformer", inter_block: str = "transformer",
+                 rnn_hidden: int = 256, rnn_bidirectional: bool = True,
+                 attention_type: str = "regularMHA", fused_attention: bool = True,
+                 remat: bool = False, skip_around_intra: bool = True,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
         self.skip_around_intra = skip_around_intra
-        self.intra_mdl = SBTransformerBlock(intra_layers, d_model, intra_nhead, intra_dffn,
-                                            fused_attention=fused_attention, dtype=dtype,
-                                            generator=generator)
-        self.inter_mdl = SBTransformerBlock(inter_layers, d_model, inter_nhead, inter_dffn,
-                                            fused_attention=fused_attention, dtype=dtype,
-                                            generator=generator)
+        self.dtype = dtype
+        rnn_width = rnn_hidden * (2 if rnn_bidirectional else 1)
+
+        def path(block, layers, nhead, dffn):
+            if block == "rnn":
+                return (SBRNNBlock(d_model, rnn_hidden, layers, rnn_bidirectional, generator),
+                        _SBLinear(rnn_width, d_model, generator))
+            return SBTransformerBlock(layers, d_model, nhead, dffn,
+                                      fused_attention=fused_attention, dtype=dtype,
+                                      attention_type=attention_type, remat=remat,
+                                      generator=generator), None
+
+        self.intra_mdl, self.intra_linear = path(intra_block, intra_layers, intra_nhead,
+                                                 intra_dffn)
+        self.inter_mdl, self.inter_linear = path(inter_block, inter_layers, inter_nhead,
+                                                 inter_dffn)
         self.intra_norm = GlobalLayerNorm(d_model)
         self.inter_norm = GlobalLayerNorm(d_model)
 
+    def _path(self, x: torch.Tensor, mdl: nn.Module, linear: Optional[_SBLinear]
+              ) -> torch.Tensor:
+        h = mdl(x)
+        return h if linear is None else _dense(h, linear.w.weight, linear.w.bias, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         batch, n_chunks, k, features = x.shape
-        intra = self.intra_mdl(x.reshape(batch * n_chunks, k, features))
+        intra = self._path(x.reshape(batch * n_chunks, k, features), self.intra_mdl,
+                           self.intra_linear)
         intra = self.intra_norm(intra.reshape(batch, n_chunks, k, features))
         if self.skip_around_intra:
             intra = intra + x
         inter = intra.transpose(1, 2).reshape(batch * k, n_chunks, features)
-        inter = self.inter_mdl(inter)
+        inter = self._path(inter, self.inter_mdl, self.inter_linear)
         inter = inter.reshape(batch, k, n_chunks, features).transpose(1, 2)
         return self.inter_norm(inter) + intra
 
@@ -323,20 +468,20 @@ class Sepformer(nn.Module):
                  inter_numlayers: int = 8, intra_nhead: int = 8, inter_nhead: int = 8,
                  intra_dffn: int = 1024, inter_dffn: int = 1024,
                  attention_type: str = "regularMHA", intra_block: str = "transformer",
-                 inter_block: str = "transformer", dtype: str = "float32", remat: bool = False,
-                 fused_attention=True, generator: Optional[torch.Generator] = None):
+                 inter_block: str = "transformer", rnn_hidden: int = 256,
+                 rnn_bidirectional: bool = True, dtype: str = "float32", remat: bool = False,
+                 remat_policy: str = "", fused_attention=True,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        if attention_type == "RelPosMHAXL":
-            raise NotImplementedError(f"attention_type='RelPosMHAXL' is not ported yet: {_LATER}")
-        if attention_type != "regularMHA":
+        if attention_type not in ("regularMHA", "RelPosMHAXL"):
             raise ValueError(f"unknown attention_type {attention_type!r}")
-        if "rnn" in (intra_block, inter_block):
-            raise NotImplementedError(f"intra_block/inter_block='rnn' (SBRNNBlock) is not ported "
-                                      f"yet: {_LATER}")
-        if intra_block != "transformer" or inter_block != "transformer":
+        if {intra_block, inter_block} - {"transformer", "rnn"}:
             raise ValueError(f"unknown block types {intra_block!r}, {inter_block!r}")
-        if remat:
-            raise NotImplementedError(f"remat=True is not ported yet: {_LATER}")
+        if remat_policy:
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} names JAX checkpoint names (jax.checkpoint_"
+                "policies.save_only_these_names), which torch.utils.checkpoint has no "
+                "counterpart of: remat=True recomputes a whole layer; leave remat_policy empty")
         if fused_attention not in (True, False, "force"):
             raise ValueError(f"fused_attention takes True, False or 'force', got "
                              f"{fused_attention!r}")
@@ -354,8 +499,10 @@ class Sepformer(nn.Module):
         block_kwargs = dict(intra_layers=intra_numlayers, inter_layers=inter_numlayers,
                             intra_nhead=intra_nhead, inter_nhead=inter_nhead,
                             intra_dffn=intra_dffn, inter_dffn=inter_dffn,
-                            fused_attention=self.fused_attention,
-                            skip_around_intra=masknet_extraskipconnection)
+                            intra_block=intra_block, inter_block=inter_block,
+                            rnn_hidden=rnn_hidden, rnn_bidirectional=rnn_bidirectional,
+                            attention_type=attention_type, fused_attention=self.fused_attention,
+                            remat=remat, skip_around_intra=masknet_extraskipconnection)
         self.masknet = _MaskNet(encoder_out_nchannels, masknet_numspks, masknet_numlayers,
                                 block_kwargs, self.compute_dtype, generator)
         self.decoder = nn.ConvTranspose1d(encoder_out_nchannels, encoder_in_nchannels,

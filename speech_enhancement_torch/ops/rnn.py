@@ -1,23 +1,29 @@
-"""LSTM layers (counterpart of speech_enhancement_tpu/ops/rnn.py).
+"""Recurrent layers (counterpart of speech_enhancement_tpu/ops/rnn.py).
 
-``LSTMLayer`` keeps the JAX package's evaluation order:
+Every layer keeps the JAX package's evaluation order:
 
 * the input projection for all timesteps is hoisted out of the recurrence
   into one matmul, accumulated in f32, cast to the compute dtype, then the
-  bias ``b_ih + b_hh`` (cast to the compute dtype) is added;
+  input bias (cast to the compute dtype) is added: ``b_ih + b_hh`` for the
+  LSTM and the vanilla RNN, ``b_ih`` for the GRU;
 * the recurrence is a plain loop over time (the counterpart of
-  ``lax.scan``): per step one [B, H] @ [H, 4H] matmul plus the gates, in
-  torch's gate order i, f, g, o, with the state carried in the compute
-  dtype; or, with ``fused``, the recurrence kernels of ``kernels/lstm.py``
-  (the JAX ``fused`` path, ops/pallas/lstm.py).
+  ``lax.scan``), with the state carried in the compute dtype and each
+  step's [B, H] @ [H, G H] product rounded to it: the LSTM's gates in
+  torch's order i, f, g, o; the GRU's r, z, n with ``b_hh`` inside
+  ``r * (W_hn h + b_hn)``; the vanilla RNN's tanh. With ``fused`` an LSTM
+  runs the recurrence kernels of ``kernels/lstm.py`` instead (the JAX
+  ``fused`` path, ops/pallas/lstm.py); the GRU and the vanilla RNN have
+  no kernel, in JAX as here.
 
-``RNNStack`` stacks LSTM layers (bidirectional: forward and reversed,
-concatenated), as the JAX ``RNNStack`` does for ``rnn_type="lstm"``.
+``RNNStack`` stacks layers of one type (bidirectional: forward and
+reversed, concatenated), with the JAX stack's inter-layer dropout in
+``train()`` mode.
 
-Parameter names are torch ``nn.LSTM``'s (``weight_ih_l0`` [4H, D],
-``weight_hh_l0`` [4H, H], ``bias_ih_l0``, ``bias_hh_l0``), so the
-reference's ``state_dict`` keys load as they are; cuDNN's LSTM is not used.
-All modules take and return batch-major [B, T, D] tensors.
+Parameter names are torch ``nn.LSTM`` / ``nn.GRU`` / ``nn.RNN``'s
+(``weight_ih_l0`` [G H, D], ``weight_hh_l0`` [G H, H], ``bias_ih_l0``,
+``bias_hh_l0``; G = 4, 3, 1), so the reference's ``state_dict`` keys load
+as they are; cuDNN's recurrences are not used. All modules take and return
+batch-major [B, T, D] tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +40,18 @@ from speech_enhancement_torch.kernels.lstm import fused_lstm
 
 def _uniform(generator: Optional[torch.Generator], bound: float, *shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
+
+
+def _visit(steps: int, reverse: bool):
+    return range(steps - 1, -1, -1) if reverse else range(steps)
+
+
+def _project(x: torch.Tensor, w_ih: torch.Tensor, bias: Optional[torch.Tensor],
+             cd: torch.dtype) -> torch.Tensor:
+    """The hoisted input projection: f32 accumulation rounded to ``cd``,
+    then the bias cast to ``cd`` added."""
+    x_proj = F.linear(x.to(cd), w_ih.to(cd))
+    return x_proj if bias is None else x_proj + bias.to(cd)
 
 
 def lstm_recurrence(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -70,18 +88,14 @@ def lstm_recurrence(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
         h0, c0 = (s.to(cd) for s in init_state)
     if fused:
         # time-major projection [T, B, 4H], as the kernel takes it
-        x_proj = F.linear(x.transpose(0, 1).to(cd), w_ih.to(cd))
-        if bias is not None:
-            x_proj = x_proj + bias.to(cd)
+        x_proj = _project(x.transpose(0, 1), w_ih, bias, cd)
         h_seq, h_last, c_last = fused_lstm(x_proj, w_hh.to(cd).t(), h0, c0, reverse)
         return h_seq.transpose(0, 1), (h_last, c_last)
-    x_proj = F.linear(x.to(cd), w_ih.to(cd))
-    if bias is not None:
-        x_proj = x_proj + bias.to(cd)
+    x_proj = _project(x, w_ih, bias, cd)
     w_hh_t = w_hh.to(cd).t()
     h, c = h0, c0
     outs = [None] * steps
-    for t in (range(steps - 1, -1, -1) if reverse else range(steps)):
+    for t in _visit(steps, reverse):
         gates = torch.addmm(x_proj[:, t], h, w_hh_t)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -126,17 +140,130 @@ class LSTMLayer(nn.Module):
                                self.reverse, init_state, self.fused)
 
 
-class RNNStack(nn.Module):
-    """Multi-layer, optionally bidirectional LSTM stack over [B, T, D]
-    (counterpart of the JAX ``RNNStack`` with ``rnn_type="lstm"``).
+def gru_recurrence(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                   b_ih: Optional[torch.Tensor], b_hh: Optional[torch.Tensor],
+                   dtype: Optional[torch.dtype] = None, reverse: bool = False) -> torch.Tensor:
+    """One GRU direction over [B, T, D] -> [B, T, H] (the JAX ``GRULayer``).
 
-    Parameters carry torch ``nn.LSTM``'s names (``weight_ih_l{k}``,
-    ``weight_hh_l{k}``, ``bias_{ih,hh}_l{k}``, and ``_reverse`` for the
-    backward direction, which is the JAX layer ``l{k}_bwd``), so a reference
-    ``state_dict`` loads as it is. The output is ``hidden * (2 if
-    bidirectional else 1)`` wide, forward then backward. Inter-layer
-    dropout is train-time only and is not ported: a stack with dropout
-    raises in ``train()`` mode. GRU and vanilla-RNN stacks are not ported.
+    ``w_ih`` [3H, D], ``w_hh`` [3H, H] in torch ``nn.GRU``'s gate order r, z,
+    n. Per step ``h W_hh`` is rounded to the compute dtype and ``b_hh``
+    added, then r = σ(x_r + h_r), z = σ(x_z + h_z), n = tanh(x_n + r h_n),
+    h = (1 - z) n + z h, all in the compute dtype, from h = 0.
+    """
+    cd = dtype or x.dtype
+    batch, steps, _ = x.shape
+    x_proj = _project(x, w_ih, b_ih, cd)
+    w_hh_t = w_hh.to(cd).t()
+    b_hh = None if b_hh is None else b_hh.to(cd)
+    h = x.new_zeros((batch, w_hh.shape[1]), dtype=cd)
+    outs = [None] * steps
+    for t in _visit(steps, reverse):
+        hp = torch.matmul(h, w_hh_t)
+        if b_hh is not None:
+            hp = hp + b_hh
+        xr, xz, xn = x_proj[:, t].chunk(3, dim=-1)
+        hr, hz, hn = hp.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        outs[t] = h
+    return torch.stack(outs, dim=1)
+
+
+def rnn_recurrence(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                   bias: Optional[torch.Tensor], dtype: Optional[torch.dtype] = None,
+                   reverse: bool = False) -> torch.Tensor:
+    """One Elman RNN direction over [B, T, D] -> [B, T, H] with tanh (the JAX
+    ``VanillaRNNLayer``): h = tanh(x W_ih + b + h W_hh), each product rounded
+    to the compute dtype, from h = 0. ``bias`` is ``b_ih + b_hh``, the JAX
+    layer's single ``b``."""
+    cd = dtype or x.dtype
+    batch, steps, _ = x.shape
+    x_proj = _project(x, w_ih, bias, cd)
+    w_hh_t = w_hh.to(cd).t()
+    h = x.new_zeros((batch, w_hh.shape[1]), dtype=cd)
+    outs = [None] * steps
+    for t in _visit(steps, reverse):
+        h = torch.tanh(x_proj[:, t] + torch.matmul(h, w_hh_t))
+        outs[t] = h
+    return torch.stack(outs, dim=1)
+
+
+_GATES = {"lstm": 4, "gru": 3, "rnn": 1}
+
+
+def _direction(rnn_type: str, x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+               b_ih: Optional[torch.Tensor], b_hh: Optional[torch.Tensor],
+               dtype: Optional[torch.dtype], reverse: bool, fused: bool) -> torch.Tensor:
+    """One direction of one layer of ``rnn_type`` -> [B, T, H]."""
+    if rnn_type == "gru":
+        return gru_recurrence(x, w_ih, w_hh, b_ih, b_hh, dtype, reverse)
+    bias = None if b_ih is None else b_ih + b_hh
+    if rnn_type == "rnn":
+        return rnn_recurrence(x, w_ih, w_hh, bias, dtype, reverse)
+    return lstm_recurrence(x, w_ih, w_hh, bias, dtype, reverse, fused=fused)[0]
+
+
+class _Recurrent(nn.Module):
+    """A single-direction GRU or vanilla-RNN layer (torch parameter names)."""
+
+    rnn_type = ""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None, *, reverse: bool = False,
+                 use_bias: bool = True):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.dtype = dtype
+        self.reverse = reverse
+        rows = _GATES[self.rnn_type] * hidden_size
+        bound = 1.0 / math.sqrt(hidden_size)
+        self.weight_ih_l0 = _uniform(generator, bound, rows, input_size)
+        self.weight_hh_l0 = _uniform(generator, bound, rows, hidden_size)
+        if use_bias:
+            self.bias_ih_l0 = _uniform(generator, bound, rows)
+            self.bias_hh_l0 = _uniform(generator, bound, rows)
+        else:
+            self.bias_ih_l0 = self.bias_hh_l0 = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _direction(self.rnn_type, x, self.weight_ih_l0, self.weight_hh_l0,
+                          self.bias_ih_l0, self.bias_hh_l0, self.dtype, self.reverse, False)
+
+
+class GRULayer(_Recurrent):
+    """Single-direction GRU layer over [B, T, D] -> [B, T, H] (gate order r, z, n)."""
+
+    rnn_type = "gru"
+
+
+class VanillaRNNLayer(_Recurrent):
+    """Single-direction Elman RNN layer with tanh (torch ``nn.RNN``'s default).
+    The JAX layer's single bias ``b`` is ``bias_ih_l0 + bias_hh_l0`` here."""
+
+    rnn_type = "rnn"
+
+
+class RNNStack(nn.Module):
+    """Multi-layer, optionally bidirectional LSTM, GRU or vanilla-RNN stack
+    over [B, T, D] (counterpart of the JAX ``RNNStack``).
+
+    Parameters carry torch ``nn.LSTM`` / ``nn.GRU`` / ``nn.RNN``'s names
+    (``weight_ih_l{k}``, ``weight_hh_l{k}``, ``bias_{ih,hh}_l{k}``, and
+    ``_reverse`` for the backward direction, which is the JAX layer
+    ``l{k}_bwd``), so a reference ``state_dict`` loads as it is. The output
+    is ``hidden * (2 if bidirectional else 1)`` wide, forward then backward.
+    ``fused`` reaches the LSTM layers only, as in JAX.
+
+    ``dropout`` > 0 drops between layers (not after the last) in
+    ``train()`` mode only, keeping each element with probability 1 - p and
+    scaling the kept ones by 1 / (1 - p), as flax's ``nn.Dropout``. The
+    masks come from a ``torch.Generator`` of the stack, one for each device
+    the stack runs on, seeded from a number drawn from ``generator`` at
+    construction (only for a stack that can drop, so other stacks' weights
+    do not move); they are never the flax masks.
     """
 
     def __init__(self, rnn_type: str, input_size: int, hidden_size: int, num_layers: int = 1,
@@ -144,10 +271,11 @@ class RNNStack(nn.Module):
                  dtype: Optional[torch.dtype] = None, fused: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if rnn_type != "lstm":
-            raise NotImplementedError(
-                f"RNNStack rnn_type={rnn_type!r} is not ported yet: the mel-rnn slice "
-                "(ROADMAP queue 1, item 8) ports the GRU and vanilla-RNN layers")
+        if rnn_type not in _GATES:
+            raise ValueError(f"rnn_type must be one of {sorted(_GATES)}, got {rnn_type!r}")
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {dropout!r}")
+        self.rnn_type = rnn_type
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.bidirectional = bidirectional
@@ -156,41 +284,56 @@ class RNNStack(nn.Module):
         self.dtype = dtype
         self.fused = fused
         bound = 1.0 / math.sqrt(hidden_size)
-        h4 = 4 * hidden_size
+        rows = _GATES[rnn_type] * hidden_size
         for layer in range(num_layers):
             width = input_size if layer == 0 else hidden_size * (2 if bidirectional else 1)
             for suffix in self._suffixes():
                 name = f"l{layer}{suffix}"
-                setattr(self, f"weight_ih_{name}", _uniform(generator, bound, h4, width))
-                setattr(self, f"weight_hh_{name}", _uniform(generator, bound, h4, hidden_size))
+                setattr(self, f"weight_ih_{name}", _uniform(generator, bound, rows, width))
+                setattr(self, f"weight_hh_{name}", _uniform(generator, bound, rows, hidden_size))
                 if use_bias:
-                    setattr(self, f"bias_ih_{name}", _uniform(generator, bound, h4))
-                    setattr(self, f"bias_hh_{name}", _uniform(generator, bound, h4))
+                    setattr(self, f"bias_ih_{name}", _uniform(generator, bound, rows))
+                    setattr(self, f"bias_hh_{name}", _uniform(generator, bound, rows))
+        self.dropout_seed = None
+        if dropout > 0 and num_layers > 1:
+            self.dropout_seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+        self._dropout_generators = {}
 
     def _suffixes(self):
         return ("", "_reverse") if self.bidirectional else ("",)
 
+    def dropout_generator(self, device: torch.device) -> torch.Generator:
+        """The generator of the dropout masks on ``device`` (made at first use)."""
+        device = torch.device(device)
+        if device not in self._dropout_generators:
+            self._dropout_generators[device] = torch.Generator(device=device).manual_seed(
+                self.dropout_seed)
+        return self._dropout_generators[device]
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=self.dropout_generator(x.device),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout > 0 and self.num_layers > 1:
-            raise NotImplementedError(
-                "RNNStack inter-layer dropout in train() mode is not ported yet: the "
-                "rnn-stft-mask training slice ports it")
         out = x
         for layer in range(self.num_layers):
             parts = []
             for suffix in self._suffixes():
                 name = f"l{layer}{suffix}"
-                bias = (getattr(self, f"bias_ih_{name}") + getattr(self, f"bias_hh_{name}")
-                        if self.use_bias else None)
-                y, _ = lstm_recurrence(out, getattr(self, f"weight_ih_{name}"),
-                                       getattr(self, f"weight_hh_{name}"), bias, self.dtype,
-                                       reverse=suffix == "_reverse", fused=self.fused)
-                parts.append(y)
+                biases = ((getattr(self, f"bias_ih_{name}"), getattr(self, f"bias_hh_{name}"))
+                          if self.use_bias else (None, None))
+                parts.append(_direction(self.rnn_type, out, getattr(self, f"weight_ih_{name}"),
+                                        getattr(self, f"weight_hh_{name}"), *biases, self.dtype,
+                                        suffix == "_reverse", self.fused))
             out = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+            if self.training and self.dropout_seed is not None and layer < self.num_layers - 1:
+                out = self._drop(out)
         return out
 
 
-class _Linear(nn.Module):
+class Linear(nn.Module):
     """Projection with torch ``nn.Linear`` parameter names and layout."""
 
     def __init__(self, in_features: int, out_features: int,
@@ -230,8 +373,8 @@ class ComplexLSTM(nn.Module):
         self.real_lstm = LSTMLayer(input_size, hidden_size, dtype, generator)
         self.imag_lstm = LSTMLayer(input_size, hidden_size, dtype, generator)
         if projection_dim is not None:
-            self.r_trans = _Linear(hidden_size, projection_dim, generator)
-            self.i_trans = _Linear(hidden_size, projection_dim, generator)
+            self.r_trans = Linear(hidden_size, projection_dim, generator)
+            self.i_trans = Linear(hidden_size, projection_dim, generator)
         else:
             self.r_trans = self.i_trans = None
 

@@ -288,9 +288,9 @@ def test_build_model_builds_both_families_on_the_cpu():
     assert spec.multi_speaker and mask.rnn.fused and mask.rnn.bidirectional
     with pytest.raises(ValueError, match="True or False"):
         build_model(Config({"name": "crn", "fused_rnn": "force"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="rnn_over_batch_compat"):
-        build_model(Config({"name": "rnn-stft-mask", "rnn_over_batch_compat": True}),
-                    device="cpu")
+    compat, _ = build_model(Config({"name": "rnn-stft-mask", **MASK, "rnn_over_batch_compat":
+                                    True}), device="cpu")  # ported: builds
+    assert compat.rnn_over_batch_compat and not mask.rnn_over_batch_compat
     spec_in = stft_custom(torch.zeros(1, 1, SAMPLES), Config(STFT))
     with torch.inference_mode():
         assert crn(spec_in).shape == spec_in.shape

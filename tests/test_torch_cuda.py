@@ -912,3 +912,94 @@ def test_small_sepformer_on_card_matches_cpu(card):
         scale = max(state_p[key].abs().max().item(), 1e-8)
         err = (state_c[key] - state_p[key]).abs().max().item()
         assert err <= 2e-3 * scale + 2 * optim["lr"], (key, err, scale)
+
+
+# -- mel-rnn, rnn-stft-mask training, Sepformer's options, DCCRN's real LSTM --
+
+# (T, B, H, dtype) of this slice's LSTM paths: mel-rnn (f32 H 256 B 16: the
+# first designs) and rnn-stft-mask training (bf16 H 896 B 16: the rings)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,dtype", [((6, 16, 256), torch.float32),
+                                         ((6, 16, 896), torch.bfloat16)])
+def test_lstm_kernels_at_the_recurrent_slice_shapes(card, shape, dtype, reverse):
+    _check_lstm_fwd(card, shape, reverse, dtype)
+    design, _ = _check_lstm_bwd(card, shape, reverse, dtype)
+    assert design == ("ring" if dtype == torch.bfloat16 else "first")
+
+
+SMALL_MEL = {"name": "mel-rnn", "n_fft": 128, "hop_length": 32, "win_length": 128,
+             "center": True, "segment": 0.25, "sample_rate": 16000, "rnn_type": "lstm",
+             "rnn_hidden": 128, "rnn_layer": 2, "n_mels": 16, "fused_rnn": True}
+
+
+def test_small_mel_rnn_on_card_matches_cpu(card):
+    """The small f32 MelRNN with the LSTM kernels on the card vs the CPU path
+    (which tests/test_torch_mel_rnn.py holds against JAX): served within
+    2e-4 of the signal's scale, one mse train step's loss and grad norm
+    within 2e-3; two forward launches serving, two of each training."""
+    from speech_enhancement_torch.kernels.lstm import lstm_bwd, lstm_fwd
+    cfg = with_defaults(Config({"model": SMALL_MEL, "dset": {"norm": "z-score"}}))
+    rng = np.random.default_rng(12)
+    wav = (0.3 * rng.standard_normal((1, 1, 7000))).astype(np.float32)
+    mixture = (0.5 * rng.standard_normal((2, 1, 3968))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, 1, 1, 3968))).astype(np.float32)
+    optim = {"optim": "adam", "lr": 3e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+    results = []
+    for dev in (card, torch.device("cpu")):
+        model, spec = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(6))
+        before = lstm_fwd.launches
+        served = evaluate_utterance(wav, model, spec, cfg, device=dev)
+        served_l = lstm_fwd.launches - before
+        opt = get_optimizer(Config(optim), model.parameters())
+        before = (lstm_fwd.launches, lstm_bwd.launches)
+        loss, norm = train_step(model, spec, opt, mixture, sources, "mse", device=dev,
+                                model_config=cfg.model)
+        results.append((served, served_l, (lstm_fwd.launches - before[0],
+                                           lstm_bwd.launches - before[1]),
+                        float(loss), float(norm)))
+    (served_c, serve_l, train_l, loss_c, norm_c), (served_p, serve_p, train_p, loss_p,
+                                                   norm_p) = results
+    assert (serve_l, train_l) == (2, (2, 2)) and (serve_p, train_p) == (0, (0, 0))
+    assert np.isfinite(served_c).all()
+    np.testing.assert_allclose(served_c, served_p, atol=2e-4 * float(np.abs(wav).max()))
+    np.testing.assert_allclose(loss_c, loss_p, rtol=2e-3)
+    np.testing.assert_allclose(norm_c, norm_p, rtol=2e-3)
+
+
+def test_sepformer_remat_on_card_relaunches_the_forward(card):
+    """remat=True on the card: each layer's attention forward runs again in
+    the backward's recompute (four mha_fwd launches for two layers, two
+    mha_bwd), and the step equals remat=False's."""
+    from speech_enhancement_torch.kernels.attention import mha_bwd, mha_fwd
+    rng = np.random.default_rng(13)
+    sources = (0.5 * rng.standard_normal((2, 2, 2, 2000))).astype(np.float32)
+    mixture = sources.sum(axis=1)
+    optim = {"optim": "adam", "lr": 1.5e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+    results = []
+    for remat in (False, True):
+        model, spec = build_model(Config(dict(SMALL_SEPFORMER, remat=remat)), device=card,
+                                  generator=torch.Generator().manual_seed(4))
+        opt = get_optimizer(Config(optim), model.parameters())
+        before = (mha_fwd.launches, mha_bwd.launches)
+        loss, norm = train_step(model, spec, opt, mixture, sources, "si-sdr", use_pit=True,
+                                device=card)
+        results.append(((mha_fwd.launches - before[0], mha_bwd.launches - before[1]),
+                        float(loss), torch.cat([p.grad.flatten() for p in model.parameters()])))
+    assert results[0][0] == (2, 2) and results[1][0] == (4, 2)
+    np.testing.assert_allclose(results[1][1], results[0][1], rtol=1e-6)
+    torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_small_dccrn_real_lstm_on_card_matches_cpu(card, fused):
+    """use_clstm=False on both execution paths: the card vs the CPU path
+    (held against JAX in tests/test_torch_dccrn.py), f32, within 2e-4."""
+    cfg = Config(dict(SMALL, use_clstm=False, use_fused_blocks=fused))
+    wav = (0.1 * np.random.default_rng(14).standard_normal((2, 8000))).astype(np.float32)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        model, _ = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(5))
+        with torch.inference_mode():
+            outs.append(model(torch.from_numpy(wav).to(dev)).cpu().numpy())
+    assert np.isfinite(outs[0]).all()
+    np.testing.assert_allclose(outs[0], outs[1], atol=2e-4)

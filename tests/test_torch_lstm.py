@@ -169,12 +169,17 @@ def test_rnnstack_bidirectional_matches_jax(rng, fused, use_bias):
 
 
 def test_rnnstack_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mel-rnn slice"):
-        port_rnn.RNNStack("gru", 8, 8)
+    """Every JAX type and the dropout are ported now: only what JAX refuses
+    too is refused (an unknown type, a rate outside [0, 1))."""
+    with pytest.raises(ValueError, match="rnn_type"):
+        port_rnn.RNNStack("qrnn", 8, 8)
+    with pytest.raises(ValueError, match="dropout"):
+        port_rnn.RNNStack("lstm", 8, 8, num_layers=2, dropout=1.0)
+    for kind in ("gru", "rnn"):
+        assert port_rnn.RNNStack(kind, 8, 8)(torch.zeros(1, 3, 8)).shape == (1, 3, 8)
     stack = port_rnn.RNNStack("lstm", 8, 8, num_layers=2, dropout=0.5)
     stack.eval()(torch.zeros(1, 3, 8))  # dropout is off in eval()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        stack.train()(torch.zeros(1, 3, 8))
+    assert stack.train()(torch.zeros(1, 3, 8)).shape == (1, 3, 8)
 
 
 def test_wrappers_reject_bad_shapes_and_devices():

@@ -244,8 +244,19 @@ def test_sepformer_evaluate_utterance_matches_jax():
 @pytest.mark.parametrize("option", [{"attention_type": "RelPosMHAXL"}, {"intra_block": "rnn"},
                                     {"inter_block": "rnn"}, {"remat": True}])
 def test_options_of_later_slices_raise(option):
-    with pytest.raises(NotImplementedError, match="Sepformer-options slice"):
-        port_sep.Sepformer(**SMALL, **option)
+    """The four options are ported (tests/test_torch_sepformer_options.py):
+    each builds, and what stays refused beside it raises: an unknown
+    attention or block type, and a JAX ``remat_policy``."""
+    with torch.inference_mode():
+        assert port_sep.Sepformer(**SMALL, **option)(torch.zeros(1, 2, 800)).shape == (
+            1, 2, 2, 800)
+    key, value = next(iter(option.items()))
+    if key == "remat":
+        with pytest.raises(NotImplementedError, match="remat_policy"):
+            port_sep.Sepformer(**SMALL, remat=True, remat_policy="attn_out")
+    else:
+        with pytest.raises(ValueError, match="unknown"):
+            port_sep.Sepformer(**SMALL, **{key: value + "_x"})
 
 
 def test_build_model_builds_the_shipped_config_at_full_width():

@@ -1,4 +1,4 @@
-"""CRN and Sepformer through the port's ``main()`` on the CPU, shrunk: one
+"""CRN, MelRNN and Sepformer through the port's ``main()`` on the CPU, shrunk: one
 epoch of two steps, a finite loss, the run dir's artifacts, and a test pass
 (Sepformer: Clarity scenes, two speakers, si-sdr with PIT, the target
 speaker's estimate scored)."""
@@ -17,6 +17,9 @@ from speech_enhancement_torch.main import main
 
 SMALL_CRN = {"name": "crn", "n_fft": 128, "hop_length": 32, "win_length": 128, "center": True,
              "segment": 0.25, "dtype": "float32", "fused_rnn": True}
+SMALL_MEL = {"name": "mel-rnn", "n_fft": 128, "hop_length": 32, "win_length": 128,
+             "center": True, "segment": 0.25, "rnn_type": "lstm", "rnn_hidden": 32,
+             "rnn_layer": 2, "n_mels": 0, "fused_rnn": True}
 SMALL_SEP = {"name": "sepformer", "audio_channels": 2, "num_spk": 2,
              "encoder_in_nchannels": 2, "encoder_out_nchannels": 32, "masknet_chunksize": 50,
              "masknet_numlayers": 1, "intra_numlayers": 1, "inter_numlayers": 1,
@@ -39,9 +42,10 @@ def _config(name, data_root, run_root):
     solver = {"root": run_root, "epochs": 1, "batch_size": 2, "all_steps": False,
               "total_steps": 2, "validation": {"total_steps": 1},
               "test": {"total_steps": 2, "num_show": 0, "metrics": ["sisdr", "stoi"]}}
-    if name == "crn":
+    if name in ("crn", "mel-rnn"):
         return with_defaults(Config({
-            "optim": {"loss": "mse", "lr": 3e-4}, "model": SMALL_CRN, "solver": solver,
+            "optim": {"loss": "mse", "lr": 3e-4},
+            "model": SMALL_CRN if name == "crn" else SMALL_MEL, "solver": solver,
             "dset": {"name": "VoiceBankDEMAND", "wav": data_root, "split": [0.5, 0.2, 0.3],
                      "segment": 0.5}}))
     return with_defaults(Config({
@@ -51,9 +55,9 @@ def _config(name, data_root, run_root):
                  "segment": 0.25, "audio_channels": 2, "mode": "deverb"}}))
 
 
-@pytest.mark.parametrize("name", ["crn", "sepformer"])
+@pytest.mark.parametrize("name", ["crn", "mel-rnn", "sepformer"])
 def test_trains_and_tests_through_main(tmp_path, name):
-    if name == "crn":
+    if name != "sepformer":
         root = make_voicebank_demand(str(tmp_path / "data"), n_utterances=8, min_seconds=0.6,
                                      max_seconds=0.9, seed=2)
     else:
