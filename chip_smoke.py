@@ -805,7 +805,7 @@ def first_step_agreement(tag: str, ref: dict, g_ref, other: dict, g_other, what:
 
 def card_vs_cpu_step(tag, cfg, wav, mixture, sources, want_serve, want_train, seed=SEED,
                      loss_name="mse", optim=TRAIN_OPTIM, use_pit=False, model_config=None,
-                     zero_grad=lambda key: False) -> dict:
+                     zero_grad=lambda key: False, prepare=None) -> dict:
     """A small f32 model built from ``cfg`` with the same weights (from
     ``seed``) on the card and on the CPU (the plain versions, which the CPU
     tests hold against the JAX package): ``wav`` served within F32_ATOL
@@ -813,11 +813,13 @@ def card_vs_cpu_step(tag, cfg, wav, mixture, sources, want_serve, want_train, se
     updated leaf within LEAF_RTOL of its scale (a leaf whose true gradient
     is zero, ``zero_grad``, at the global scale; Adam moves an element by up
     to lr whatever its gradient: the parameters get 2 lr more). Checks the
-    card's launches."""
+    card's launches. ``prepare`` (if given) is applied to each built model."""
     results = []
     for device in ("cuda", "cpu"):
         model, spec = build_model(cfg.model, device=device,
                                   generator=torch.Generator().manual_seed(seed))
+        if prepare is not None:
+            prepare(model)
         reset_launches()
         served = (evaluate_utterance(wav, model, spec, cfg, device=device) if wav is not None
                   else np.zeros(1))
@@ -1213,12 +1215,29 @@ LSTM_FWD_CASES = (
     ("rnn-stft-mask serve, reversed", 501, 384, 896, torch.bfloat16, True, 257),
     ("mel-rnn train", 501, 16, 256, torch.float32, False, 257),
     ("rnn-stft-mask train", 501, 16, 896, torch.bfloat16, False, 257),
-    ("rnn-stft-mask train, reversed", 501, 16, 896, torch.bfloat16, True, 257))
+    ("rnn-stft-mask train, reversed", 501, 16, 896, torch.bfloat16, True, 257),
+    ("mel-rnn serve", 501, 192, 256, torch.float32, False, 257),
+    # Demucs's DConv BLSTMs (layers 4 and 5 of configs/demucs_clarity.yaml):
+    # f32 on its path (GroupNorm promotes the bf16 conv output, as flax
+    # does); bf16 at the same shapes beside them
+    ("demucs serve, layer 4", 124, 192, 256, torch.float32, False, 256),
+    ("demucs serve, layer 4, reversed", 124, 192, 256, torch.float32, True, 256),
+    ("demucs serve, layer 5", 30, 192, 512, torch.float32, False, 512),
+    ("demucs train, layer 4", 124, 8, 256, torch.float32, False, 256),
+    ("demucs train, layer 5", 30, 8, 512, torch.float32, False, 512),
+    ("demucs serve, layer 4, bf16", 124, 192, 256, torch.bfloat16, False, 256),
+    ("demucs serve, layer 5, bf16", 30, 192, 512, torch.bfloat16, False, 512),
+    ("demucs train, layer 4, bf16", 124, 8, 256, torch.bfloat16, False, 256),
+    ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512))
 LSTM_BWD_CASES = (
     ("crn train", 501, 16, 1792, torch.bfloat16, False, 1792),
     ("mel-rnn train", 501, 16, 256, torch.float32, False, 257),
     ("rnn-stft-mask train", 501, 16, 896, torch.bfloat16, False, 257),
-    ("rnn-stft-mask train, reversed", 501, 16, 896, torch.bfloat16, True, 257))
+    ("rnn-stft-mask train, reversed", 501, 16, 896, torch.bfloat16, True, 257),
+    ("demucs train, layer 4", 124, 8, 256, torch.float32, False, 256),
+    ("demucs train, layer 5", 30, 8, 512, torch.float32, False, 512),
+    ("demucs train, layer 4, bf16", 124, 8, 256, torch.bfloat16, False, 256),
+    ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512))
 
 
 def lstm_fwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim) -> dict:
@@ -1282,7 +1301,10 @@ def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
     rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
            for g, w in zip(got, want)]
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-    if design != ("ring" if bf16 else "first") or not max(rel) <= tol:
+    # the ring design is what the bf16 cases of the earlier paths take; the
+    # Demucs bf16 shapes (on no path) take whichever the plan picks
+    want_design = design if tag.startswith("demucs") else ("ring" if bf16 else "first")
+    if design != want_design or not max(rel) <= tol:
         fail(f"lstm_bwd {tag} ({design}) disagrees with plain: dgates, dh0, dc0 {rel} of their "
              f"largest (bound {tol:g})")
     row = {"case": tag, "steps": steps, "batch": batch, "hidden": hidden,
@@ -2093,6 +2115,216 @@ def dccrn_real_lstm_phase(dev) -> dict:
     return result
 
 
+# -- the rest of the zoo: dnn, unet, wav-unet, dcunet, tcn, conv-tasnet, demucs
+
+# (family, shipped config, its train batch: mono VBD items or stereo Clarity
+# pairs of two speakers); the parameter counts are tests/test_torch_zoo_params.py's
+ZOO = (("dnn", "dnn_vbd.yaml", 2699781), ("unet", "unet_vbd.yaml", 1959142),
+       ("wav-unet", "wav_unet_vbd.yaml", 10132802), ("dcunet", "dcunet_vbd.yaml", 1966270),
+       ("tcn", "tcn_vbd.yaml", 535617), ("conv-tasnet", "conv_tasnet_clarity.yaml", 1012508),
+       ("demucs", "demucs_clarity.yaml", 133751012))
+ZOO_REQUESTS = 2  # 10 s each, the first warms up
+# lstm_fwd launches of one Demucs call at configs/demucs_clarity.yaml: BLSTMs
+# in encoder layers 4 and 5 x 2 DConv depths x 2 LSTM layers x 2 directions
+DEMUCS_LAUNCHES = 16
+ZOO_STFT = {"n_fft": 128, "hop_length": 32, "win_length": 128, "center": True}
+# the small f32 models of the CPU tests (tests/test_torch_{dnn,unet,...}.py)
+ZOO_SMALL = {
+    "dnn": dict(n_layers=3, hidden_layer=64, drop_out=0.0),
+    "unet": dict(unet_layer=2),
+    "wav-unet": dict(unet_nlayers=3, channels_interval=4),
+    # n_fft 256: at 128 and 512 on 4000 samples the decoder's output is
+    # zero-padded to the input's (T, F), where mask E's sqrt and atan2 of a
+    # zero mask (zero head biases at init) give NaN gradients, in JAX too
+    "dcunet": dict(model_complexity=8, n_fft=256, hop_length=64, win_length=256),
+    "tcn": dict(tcn_channels=8, tcn_hidden=16, tcn_blocks=3, tcn_repeats=2),
+    "conv-tasnet": dict(N=16, L=8, B=8, H=16, P=3, X=3, R=2, audio_channels=2),
+    "demucs": dict(channels=8, depth=3, norm_starts=1, norm_groups=2, dconv_attn=2,
+                   dconv_lstm=2, fused_rnn=True),
+}
+# a gradient that is zero in exact arithmetic holds rounding residue on both
+# sides: a conv or Linear bias a BatchNorm follows, LocalState's key bias;
+# and UNet's last one-channel BatchNorm scale, whose output a one-channel
+# conv and BatchNorm renormalise (its gradient is 7e-7 of the largest leaf,
+# and f32 against f64 on the CPU differ by 13% of it)
+ZOO_ZERO_GRAD = {
+    "dnn": lambda key: key.endswith("model.0.bias"),
+    "unet": lambda key: key == "outconv.conv.double_conv.1.weight",
+    "wav-unet": lambda key: key.endswith(("main.0.bias", "middle.0.bias")),
+    "dcunet": lambda key: key.startswith(("encoder", "decoder")) and key.endswith(".bias")
+    and ".bn." not in key,
+    "demucs": lambda key: key.endswith(".key.bias"),
+}
+
+
+def no_dropout(model) -> None:
+    """UNet's dropout is not a config key: rate 0 for a card-vs-CPU step."""
+    for module in model.modules():
+        if isinstance(module, torch.nn.Dropout):
+            module.p = 0.0
+
+
+def set_fused_rnn(model, fused: bool) -> None:
+    """Route every LSTM stack of ``model`` through the kernels or the plain loop."""
+    from speech_enhancement_torch.ops.rnn import RNNStack
+
+    for module in model.modules():
+        if isinstance(module, RNNStack):
+            module.fused = fused
+
+
+def zoo_card_vs_cpu(name: str, path: str) -> dict:
+    """The family's small f32 model on the card vs the CPU: one request and
+    one train step with the config's loss (``card_vs_cpu_step``)."""
+    cfg = load_config(path)
+    channels = int(cfg.dset.audio_channels)
+    multi = name in ("conv-tasnet", "demucs")
+    small = Config({"model": {"name": name, **ZOO_STFT, **ZOO_SMALL[name], "segment": 0.25,
+                              "sample_rate": 16000},
+                    "dset": {"sample_rate": 16000, "norm": "z-score",
+                             "audio_channels": channels}})
+    rng = np.random.default_rng(SEED + 40)
+    n_src = 2 if multi else 1
+    wav = (0.5 * rng.standard_normal((1, channels, 9000))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, n_src, channels, 4000))).astype(np.float32)
+    mixture = (sources.sum(axis=1) + 0.05 * rng.standard_normal((2, channels, 4000))).astype(
+        np.float32)
+    stft_domain = name in ("dnn", "unet", "dcunet")
+    launches = 8 if name == "demucs" else 0  # one BLSTM layer of the small Demucs: 2 x 2 x 2
+    return card_vs_cpu_step(
+        f"zoo {name}: small f32 model", small, wav, mixture, sources,
+        {"lstm_fwd": launches}, {"lstm_fwd": launches, "lstm_bwd": launches}, seed=SEED + 41,
+        loss_name=str(cfg.optim.loss), use_pit=multi,
+        model_config=small.model if stft_domain else None,
+        zero_grad=ZOO_ZERO_GRAD.get(name, lambda key: False),
+        prepare=no_dropout if name == "unet" else None)
+
+
+def zoo_serve(tag, model, spec, cfg, requests, dev, want_lstm=0) -> tuple:
+    """``requests`` through evaluate_utterance: the launches, the output's
+    shape, the warm request's ms, the peak and the device-busy share."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs, times = serve(model, spec, cfg, requests, dev)
+    expect_launches(tag, read_launches(), lstm_fwd=want_lstm * len(requests))
+    n_src = len(cfg.model.sources) if spec.multi_speaker else None
+    for out, req in zip(outs, requests):
+        shape = req.shape[:1] + ((n_src,) if n_src else ()) + req.shape[1:]
+        if out.shape != shape or not np.isfinite(out).all():
+            fail(f"{tag}: output {out.shape} (want {shape}), finite {np.isfinite(out).all()}")
+    ms = 1e3 * statistics.mean(times[1:])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    busy_ms, top = device_busy(lambda: evaluate_utterance(requests[0], model, spec, cfg,
+                                                          device=dev))
+    row = {"request_ms": [1e3 * t for t in times], "warm_ms": ms, "rtf": ms / 1e3 / SECONDS,
+           "peak_mem_gib": peak_gib, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / ms if busy_ms else None, "top_kernels": top[:4]}
+    share = row["device_busy_share"]
+    log(f"{tag}: {len(requests)} requests of {SECONDS:g} s ({requests[0].shape[1]} channel(s)); "
+        f"request ms {[round(x, 1) for x in row['request_ms']]} (the first warms up); warm "
+        f"{ms:.1f} ms, RTF {row['rtf']:.4f}; peak {peak_gib:.2f} GiB; device busy "
+        f"{busy_ms:.1f} ms ({'not measured' if share is None else f'{share:.3f}'} of the warm "
+        "request); top kernels " + "; ".join(f"{t['kernel'][:60]} {t['ms']:.2f} ms x{t['count']}"
+                                             for t in top[:4]))
+    return outs, row
+
+
+def zoo_family(dev, name: str, file: str, want_params: int, requests: dict, batches: dict
+               ) -> dict:
+    """One family of ``zoo_phase``: its parameters, its small model card vs
+    CPU, two requests and three train steps (demucs also with fused_rnn)."""
+    path = os.path.join(ROOT, "configs", file)
+    row = {"config": f"configs/{file}", "card_vs_cpu": zoo_card_vs_cpu(name, path)}
+    cfg, model, spec = load_model(dev, path)
+    row["params"] = sum(p.numel() for p in model.parameters())
+    log(f"zoo {name}: {row['params']} parameters at configs/{file} (the CPU tests pin "
+        f"{want_params}), compute dtype {model.compute_dtype}")
+    if row["params"] != want_params:
+        fail(f"zoo {name}: {row['params']} parameters, the CPU tests pin {want_params}")
+    reqs = requests["stereo" if spec.multi_speaker else "mono"]
+    outs, row["serve"] = zoo_serve(f"zoo {name} serve", model, spec, cfg, reqs, dev)
+    if name == "demucs":
+        set_fused_rnn(model, True)
+        fused_outs, row["serve_fused"] = zoo_serve(
+            "zoo demucs serve, fused_rnn", model, spec, cfg, reqs, dev,
+            want_lstm=DEMUCS_LAUNCHES)
+        row["serve_agreement"] = agree(fused_outs, outs, "zoo demucs serve: kernels vs "
+                                       "plain loop")
+        log(f"zoo demucs serve: kernels vs plain loop {row['serve_agreement']}")
+    del model, outs
+    optim = cfg.optim.to_dict()
+    mixture, sources = batches[name if name == "demucs" else
+                               "stereo" if spec.multi_speaker else "mono"]
+    dropout = name in ("dnn", "unet")  # the loss need not fall under dropout
+    row["train"], g_plain = train_path(f"zoo {name}", dev, mixture, sources, path,
+                                       loss_name=str(cfg.optim.loss), optim=optim,
+                                       falling=not dropout)
+    expect_launches(f"zoo {name} train", row["train"]["launches"])
+    if name == "demucs":
+        row["train_fused"], g_fused = train_path(
+            "zoo demucs, fused_rnn", dev, mixture, sources, path,
+            loss_name=str(cfg.optim.loss), optim=optim, detail=False, fused_rnn=True)
+        expect_launches("zoo demucs train, fused_rnn", row["train_fused"]["launches"],
+                        lstm_fwd=2 * DEMUCS_LAUNCHES * TRAIN_STEPS,
+                        lstm_bwd=DEMUCS_LAUNCHES * TRAIN_STEPS)
+        row["first_step_agreement"] = first_step_agreement(
+            "zoo demucs train", row["train"], g_plain, row["train_fused"], g_fused,
+            "kernels vs plain loop")
+    torch.cuda.empty_cache()
+    return row
+
+
+def zoo_inputs():
+    """Two 10 s requests, mono and stereo; the train batches: 16 mono VBD
+    items of 4 s (dnn to tcn), 16 stereo pairs of two speakers (conv-tasnet)
+    and 8 (demucs), as the configs' solver.batch_size."""
+    rng = np.random.default_rng(SEED + 42)
+    n = int(SECONDS * 16000)
+    requests = {"mono": [utterance(rng, n) for _ in range(ZOO_REQUESTS)],
+                "stereo": [np.concatenate([utterance(rng, n)[:, 0] for _ in range(2)])[None]
+                           for _ in range(ZOO_REQUESTS)]}
+    batches = {"mono": crn_train_batch(), "stereo": stereo_pair_batch(16, SEED + 43),
+               "demucs": stereo_pair_batch(8, SEED + 44)}
+    return requests, batches
+
+
+def zoo_models_cli() -> float:
+    """``python -m speech_enhancement_torch.models --all`` on the card: every
+    family builds and runs one forward; returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "speech_enhancement_torch.models", "--all",
+                           "--seconds", "1"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"models CLI: {line}")
+    if proc.returncode != 0 or proc.stdout.count("device=cuda") != 12:
+        fail(f"python -m speech_enhancement_torch.models --all: rc {proc.returncode}\n"
+             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    seconds = time.perf_counter() - t0
+    log(f"models CLI on the card: twelve families in {seconds:.1f} s (one process, with its "
+        "start)")
+    return seconds
+
+
+def zoo_phase(dev) -> dict:
+    """The seven families at the full width of their shipped configs: each
+    family's parameter count against the CPU tests' pin, its small f32 model
+    on the card vs the CPU, two 10 s requests through evaluate_utterance
+    (192 windows; stereo for conv-tasnet and demucs), and three train steps
+    at the config's batch and loss (B 16 x 4 s, mono VBD items; conv-tasnet
+    B 16 stereo, two speakers, si-sdr with PIT; demucs B 8 with remat, l1
+    with PIT) with the step split and the device-busy share. Demucs also
+    serves and trains with ``fused_rnn = True`` against its plain loop:
+    DEMUCS_LAUNCHES forward launches a call, and in training with remat as
+    many again (the recomputed forward) and DEMUCS_LAUNCHES backward ones.
+    Last, ``python -m speech_enhancement_torch.models --all`` on the card."""
+    requests, batches = zoo_inputs()
+    result = {name: zoo_family(dev, name, file, want, requests, batches)
+              for name, file, want in ZOO}
+    result["models_cli_s"] = zoo_models_cli()
+    return result
+
+
 # -- the system's own entry point: data layer, Solver and CLI ----------------
 
 CLI_UTTERANCES = 184  # 4 to 10 s each: 128 train (8 steps of 16), 27 val, 29 test
@@ -2427,6 +2659,7 @@ def main() -> int:
     phase("rnn_stft_mask_train", rnn_stft_mask_train_phase, dev)
     phase("sepformer_options", sepformer_options_phase, dev)
     phase("dccrn_real_lstm", dccrn_real_lstm_phase, dev)
+    phase("zoo", zoo_phase, dev)
     phase("cli", cli_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")

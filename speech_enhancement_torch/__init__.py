@@ -6,9 +6,10 @@ imports JAX or anything from the JAX package. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``; they raise when CUDA is
 asked for and absent (see ``device.resolve_device``).
 
-Ported so far: DCCRN, CRN, the RNN STFT-mask separator and Sepformer
-(``models``, ``ops``, ``compat.jax_weights``) with the hand-written CUDA
-kernels under ``kernels/``; the host data layer (``data``, ``utils``,
+Ported so far: the twelve model families of the JAX registry
+(``models``, ``ops``, ``compat.jax_weights``; ``python -m
+speech_enhancement_torch.models`` builds and runs each) with the
+hand-written CUDA kernels under ``kernels/``; the host data layer (``data``, ``utils``,
 ``config``); the engine (``train.solver.Solver``, ``train.evaluate``,
 ``train.losses``, ``train.metrics``, ``train.checkpoints``); and the entry
 point ``main.main`` with its command line::

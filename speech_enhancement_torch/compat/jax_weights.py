@@ -1,4 +1,10 @@
-"""Carry the JAX package's DCCRN, CRN, MelRNN, RNN STFT-mask and Sepformer weights into the port.
+"""Carry the JAX package's model weights into the port: every family of the zoo.
+
+``dnn_state_from_jax``, ``unet_state_from_jax``, ``wav_unet_state_from_jax``,
+``dcunet_state_from_jax``, ``conv_tasnet_state_from_jax`` and
+``demucs_state_from_jax`` invert the JAX package's ``*_from_torch_state``
+importers exactly (reference key names; transposed-conv weights flipped);
+``tcn_state_from_jax`` names the flax modules, as the reference has no TCN.
 
 ``crn_state_from_jax``, ``mel_rnn_state_from_jax``,
 ``rnn_stft_mask_state_from_jax`` and ``sepformer_state_from_jax`` invert
@@ -277,4 +283,242 @@ def sepformer_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]
         sd[f"masknet.{name}.0.bias"] = _t(params[name]["bias"])
     sd["masknet.end_conv1x1.weight"] = _t(kernel(params["end_proj"]).T[:, :, None])
     sd["decoder.weight"] = _t(kernel(params["decoder"]).transpose(1, 2, 0)[:, :, ::-1])
+    return sd
+
+
+# -- the rest of the zoo -------------------------------------------------------
+
+def _conv_k(sd: Dict[str, torch.Tensor], prefix: str, tree: Mapping) -> None:
+    """flax Conv (kernel [*k, in, out]) -> torch Conv1d / Conv2d
+    ``{prefix}.weight`` [out, in, *k] and ``.bias``."""
+    kernel = np.asarray(tree["kernel"], dtype=np.float32)
+    axes = (kernel.ndim - 1, kernel.ndim - 2) + tuple(range(kernel.ndim - 2))
+    sd[f"{prefix}.weight"] = _t(kernel.transpose(axes))
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def _tconv_k(sd: Dict[str, torch.Tensor], prefix: str, tree: Mapping) -> None:
+    """flax ConvTranspose (kernel [*k, in, out], not flipped) -> torch
+    ConvTranspose1d / 2d ``{prefix}.weight`` [in, out, *k], flipped in space."""
+    kernel = np.asarray(tree["kernel"], dtype=np.float32)
+    spatial = tuple(range(kernel.ndim - 2))
+    weight = kernel.transpose((kernel.ndim - 2, kernel.ndim - 1) + spatial)
+    sd[f"{prefix}.weight"] = _t(np.flip(weight, axis=tuple(a + 2 for a in spatial)))
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def _gn(sd: Dict[str, torch.Tensor], prefix: str, tree: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(tree["scale"])
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def dnn_state_from_jax(params: Mapping, batch_stats: Mapping
+                       ) -> "OrderedDict[str, torch.Tensor]":
+    """flax DNN -> the port's DNN ``state_dict``: the exact inverse of the
+    JAX package's ``dnn_from_torch_state`` (``context``, ``model.{n}.model.0``
+    Linear, ``model.{n}.model.1`` BatchNorm1d)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    if "context" in params:
+        _linear(sd, "context", params["context"])
+    n_layers = sum(1 for key in params if key.startswith("linear_"))
+    for n in range(n_layers):
+        _linear(sd, f"model.{n}.model.0", params[f"linear_{n}"])
+        _bn(sd, f"model.{n}.model.1", params[f"bn_{n}"], batch_stats[f"bn_{n}"])
+    return sd
+
+
+def tcn_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax DilatedTCN params -> the port's ``state_dict``. The reference has
+    no TCN, so the keys are the flax modules' names (``encoder``,
+    ``block_{r}_{b}.{dilated,norm,project}``, ``decoder`` as a torch
+    ConvTranspose1d weight, the flax kernel flipped)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _conv_k(sd, "encoder", params["encoder"])
+    for key in params:
+        if key.startswith("block_"):
+            _conv_k(sd, f"{key}.dilated", params[key]["dilated"])
+            _gn(sd, f"{key}.norm", params[key]["norm"])
+            _conv_k(sd, f"{key}.project", params[key]["project"])
+    _tconv_k(sd, "decoder", params["decoder"])
+    return sd
+
+
+def wav_unet_state_from_jax(params: Mapping, batch_stats: Mapping
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """flax WavUNet -> the port's ``state_dict``: the exact inverse of the JAX
+    package's ``wav_unet_from_torch_state`` (``encoder.{i}.main.{0,1}``,
+    ``middle.{0,1}``, ``decoder.{i}.main.{0,1}``, ``out.0``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def block(prefix, key):
+        _conv_k(sd, f"{prefix}.0", params[key]["conv"])
+        _bn(sd, f"{prefix}.1", params[key]["bn"], batch_stats[key]["bn"])
+
+    n_layers = sum(1 for key in params if key.startswith("enc_"))
+    for i in range(n_layers):
+        block(f"encoder.{i}.main", f"enc_{i}")
+    block("middle", "middle")
+    for i in range(n_layers):
+        block(f"decoder.{i}.main", f"dec_{i}")
+    _conv_k(sd, "out.0", params["out"])
+    return sd
+
+
+def unet_state_from_jax(params: Mapping, batch_stats: Mapping
+                        ) -> "OrderedDict[str, torch.Tensor]":
+    """flax UNet -> the port's ``state_dict``: the exact inverse of the JAX
+    package's ``unet_from_torch_state`` (DoubleConvs' conv at 0 and 3,
+    BatchNorm at 1 and 4; the ConvTranspose2d ``up`` weights flipped)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def double_conv(prefix, key):
+        for conv_i, bn_i, n in ((0, 1, 1), (3, 4, 2)):
+            _conv_k(sd, f"{prefix}.{conv_i}", params[key][f"conv{n}"])
+            _bn(sd, f"{prefix}.{bn_i}", params[key][f"bn{n}"], batch_stats[key][f"bn{n}"])
+
+    n_layers = sum(1 for key in params if key.startswith("down_"))
+    for n in range(n_layers):
+        double_conv(f"encoder.{n}.maxpool_conv.0.double_conv", f"down_{n}")
+    double_conv("middle.double_conv", "middle")
+    for n in range(n_layers):
+        if f"up_{n}" in params:
+            _tconv_k(sd, f"decoder.{n}.up", params[f"up_{n}"])
+        double_conv(f"decoder.{n}.conv.double_conv", f"dec_{n}")
+    if "up_out" in params:
+        _tconv_k(sd, "outconv.up", params["up_out"])
+    double_conv("outconv.conv.double_conv", "dec_out")
+    return sd
+
+
+def dcunet_state_from_jax(params: Mapping, batch_stats: Mapping
+                          ) -> "OrderedDict[str, torch.Tensor]":
+    """flax DCUnet -> the port's ``state_dict``: the exact inverse of the JAX
+    package's ``dcunet_from_torch_state`` (``encoder{i}.conv.conv_{re,im}``,
+    ``decoder{i}.transconv.tconv_{re,im}`` flipped, each block's
+    ``bn.bn_{re,im}``, ``linear.conv_{re,im}``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def cbn(prefix, key):
+        for part, name in (("bn_re", "bn_r"), ("bn_im", "bn_i")):
+            _bn(sd, f"{prefix}.bn.{part}", params[key]["bn"][name],
+                batch_stats[key]["bn"][name])
+
+    n_blocks = sum(1 for key in params if key.startswith("enc_"))
+    for i in range(n_blocks):
+        _conv_k(sd, f"encoder{i}.conv.conv_re", params[f"enc_{i}"]["conv_r"])
+        _conv_k(sd, f"encoder{i}.conv.conv_im", params[f"enc_{i}"]["conv_i"])
+        cbn(f"encoder{i}", f"enc_{i}")
+    for i in range(n_blocks):
+        _tconv_k(sd, f"decoder{i}.transconv.tconv_re", params[f"dec_{i}"]["tconv_r"])
+        _tconv_k(sd, f"decoder{i}.transconv.tconv_im", params[f"dec_{i}"]["tconv_i"])
+        cbn(f"decoder{i}", f"dec_{i}")
+    _conv_k(sd, "linear.conv_re", params["linear_r"])
+    _conv_k(sd, "linear.conv_im", params["linear_i"])
+    return sd
+
+
+def conv_tasnet_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax ConvTasNet params -> the port's ``state_dict``: the exact inverse
+    of the JAX package's ``conv_tasnet_from_torch_state``, in the
+    reference's ``separator.network`` layout, or its named layout when the
+    blocks have skip convs; cLN / gLN affines as [1, N, 1]."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    blocks = sorted(key for key in params if key.startswith("block_"))
+    skip = any("skip_conv" in params[key]["dsconv"] for key in blocks)
+    if skip:
+        ln, bottleneck = "separator.layer_norm", "separator.bottleneck_conv1x1"
+        tcn, mask = "separator.temporal_conv_net", "separator.mask_conv1x1"
+    else:
+        ln, bottleneck = "separator.network.0", "separator.network.1"
+        tcn, mask = "separator.network.2", "separator.network.3"
+
+    def norm(prefix, tree):
+        sd[f"{prefix}.gamma"] = _t(np.asarray(tree["gamma"]).reshape(1, -1, 1))
+        sd[f"{prefix}.beta"] = _t(np.asarray(tree["beta"]).reshape(1, -1, 1))
+
+    _conv_k(sd, "encoder.conv1d_U", params["encoder"])
+    norm(ln, params["layer_norm"])
+    _conv_k(sd, bottleneck, params["bottleneck"])
+    for key in blocks:
+        r, x = key.split("_")[1:]
+        block, p = params[key], f"{tcn}.{r}.{x}"
+        _conv_k(sd, f"{p}.net.0", block["conv1x1"])
+        sd[f"{p}.net.1.weight"] = _t(block["prelu"]["alpha"])
+        norm(f"{p}.net.2", block["norm"])
+        ds = block["dsconv"]
+        _conv_k(sd, f"{p}.net.3.net.0", ds["depthwise"])
+        sd[f"{p}.net.3.net.1.weight"] = _t(ds["prelu"]["alpha"])
+        norm(f"{p}.net.3.net.2", ds["norm"])
+        _conv_k(sd, f"{p}.net.3.pointwise_conv", ds["pointwise"])
+        if "skip_conv" in ds:
+            _conv_k(sd, f"{p}.net.3.skip_conv", ds["skip_conv"])
+    _conv_k(sd, mask, params["mask_conv"])
+    sd["decoder.basis_signals.weight"] = _t(np.asarray(params["decoder"]["kernel"]).T)
+    return sd
+
+
+def _demucs_blstm(sd: Dict[str, torch.Tensor], prefix: str, tree: Mapping) -> None:
+    _rnn_stack(sd, f"{prefix}.lstm", tree)
+    _linear(sd, f"{prefix}.linear", tree["linear"])
+
+
+def _demucs_dconv(sd: Dict[str, torch.Tensor], base: str, tree: Mapping) -> None:
+    """DConv ``d{d}_*`` -> ``{base}.layers.{d}.{k}`` in the reference Sequential's
+    positions (conv 0, norm 1, [BLSTM], [LocalState], 1x1, norm, GLU, scale)."""
+    depth = sum(1 for key in tree if key.endswith("_conv"))
+    for d in range(depth):
+        p, j = f"{base}.layers.{d}", 3
+        _conv_k(sd, f"{p}.0", tree[f"d{d}_conv"])
+        if f"d{d}_norm1" in tree:
+            _gn(sd, f"{p}.1", tree[f"d{d}_norm1"])
+        if f"d{d}_lstm" in tree:
+            _demucs_blstm(sd, f"{p}.{j}", tree[f"d{d}_lstm"])
+            j += 1
+        if f"d{d}_attn" in tree:
+            for name, sub in tree[f"d{d}_attn"].items():
+                _conv_k(sd, f"{p}.{j}.{name}", sub)
+            j += 1
+        _conv_k(sd, f"{p}.{j}", tree[f"d{d}_rewrite"])
+        if f"d{d}_norm2" in tree:
+            _gn(sd, f"{p}.{j + 1}", tree[f"d{d}_norm2"])
+        sd[f"{p}.{j + 3}.scale"] = _t(tree[f"d{d}_scale"]["scale"])
+
+
+def demucs_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax Demucs params -> the port's ``state_dict``: the exact inverse of
+    the JAX package's ``demucs_from_torch_state`` (``encoder.{i}.{k}`` and
+    ``decoder.{depth - 1 - i}.{k}`` in the reference Sequentials' positions,
+    ConvTranspose1d weights flipped, BLSTMs as ``lstm.*_l{k}[_reverse]`` and
+    ``linear``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    depth = sum(1 for key in params if key.startswith("enc_") and key.endswith("_conv"))
+    for i in range(depth):
+        e, j = f"encoder.{i}", 3
+        _conv_k(sd, f"{e}.0", params[f"enc_{i}_conv"])
+        if f"enc_{i}_norm" in params:
+            _gn(sd, f"{e}.1", params[f"enc_{i}_norm"])
+        if f"enc_{i}_dconv" in params:
+            _demucs_dconv(sd, f"{e}.3", params[f"enc_{i}_dconv"])
+            j = 4
+        if f"enc_{i}_rewrite" in params:
+            _conv_k(sd, f"{e}.{j}", params[f"enc_{i}_rewrite"])
+            if f"enc_{i}_rwnorm" in params:
+                _gn(sd, f"{e}.{j + 1}", params[f"enc_{i}_rwnorm"])
+    for i in range(depth):
+        d, j = f"decoder.{depth - 1 - i}", 0
+        if f"dec_{i}_rewrite" in params:
+            _conv_k(sd, f"{d}.0", params[f"dec_{i}_rewrite"])
+            if f"dec_{i}_rwnorm" in params:
+                _gn(sd, f"{d}.1", params[f"dec_{i}_rwnorm"])
+            j = 3
+        if f"dec_{i}_dconv" in params:
+            _demucs_dconv(sd, f"{d}.{j}", params[f"dec_{i}_dconv"])
+            j += 1
+        _tconv_k(sd, f"{d}.{j}", params[f"dec_{i}_tconv"])
+        if f"dec_{i}_norm" in params:
+            _gn(sd, f"{d}.{j + 1}", params[f"dec_{i}_norm"])
+    if "lstm" in params:
+        _demucs_blstm(sd, "lstm", params["lstm"])
     return sd

@@ -1,8 +1,7 @@
 """Model registry of the port (counterpart of speech_enhancement_tpu/models/__init__.py).
 
-DCCRN, CRN, MelRNN, the RNN STFT-mask separator and Sepformer are ported; every other family
-of the JAX package's registry raises an error that names the slice that
-ports it.
+Every family of the JAX package's registry: dnn, mel-rnn, rnn-stft-mask,
+crn, unet, dcunet, dccrn, wav-unet, demucs, conv-tasnet, sepformer and tcn.
 """
 
 from __future__ import annotations
@@ -14,27 +13,28 @@ import torch
 from torch import nn
 
 from speech_enhancement_torch.device import DeviceLike, resolve_device
+from speech_enhancement_torch.models.conv_tasnet import ConvTasNet
 from speech_enhancement_torch.models.crn import CRN
 from speech_enhancement_torch.models.dccrn import DCCRN
+from speech_enhancement_torch.models.dcunet import DCUnet
+from speech_enhancement_torch.models.demucs import Demucs
+from speech_enhancement_torch.models.dnn import DNN
 from speech_enhancement_torch.models.mel_rnn import MelRNN
 from speech_enhancement_torch.models.sepformer import Sepformer
 from speech_enhancement_torch.models.stft_rnn import RNNSTFTMask
+from speech_enhancement_torch.models.tcn import DilatedTCN
 from speech_enhancement_torch.models.types import SignalSpec
+from speech_enhancement_torch.models.unet import UNet
+from speech_enhancement_torch.models.wav_unet import WavUNet
 
-_REGISTRY = {"dccrn": DCCRN, "crn": CRN, "mel-rnn": MelRNN, "rnn-stft-mask": RNNSTFTMask,
-             "sepformer": Sepformer}
+_REGISTRY = {"dnn": DNN, "mel-rnn": MelRNN, "rnn-stft-mask": RNNSTFTMask, "crn": CRN,
+             "unet": UNet, "dcunet": DCUnet, "dccrn": DCCRN, "wav-unet": WavUNet,
+             "demucs": Demucs, "conv-tasnet": ConvTasNet, "sepformer": Sepformer,
+             "tcn": DilatedTCN}
 
-# Families of the JAX package not ported yet, and the slice that ports each
-# (the order of ROADMAP.md's queue of slices).
-_LATER = {
-    "dnn": "the slice that ports the rest of the zoo",
-    "unet": "the slice that ports the rest of the zoo",
-    "dcunet": "the slice that ports the rest of the zoo",
-    "wav-unet": "the slice that ports the rest of the zoo",
-    "demucs": "the slice that ports the rest of the zoo",
-    "conv-tasnet": "the slice that ports the rest of the zoo",
-    "tcn": "the slice that ports the rest of the zoo",
-}
+
+def model_names() -> list:
+    return sorted(_REGISTRY)
 
 
 def build_model(model_config, device: DeviceLike = None,
@@ -49,8 +49,6 @@ def build_model(model_config, device: DeviceLike = None,
     """
     dev = resolve_device(device)
     name = str(model_config.name)
-    if name in _LATER:
-        raise NotImplementedError(f"model {name!r} is not ported yet: {_LATER[name]} ports it")
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; options: {sorted(_REGISTRY)}")
     cls = _REGISTRY[name]

@@ -1,6 +1,8 @@
-"""Complex batch norm with full 2x2 covariance whitening.
+"""Complex batch norms (counterpart of speech_enhancement_tpu/ops/complex_ops.py).
 
-Counterpart of speech_enhancement_tpu/ops/complex_ops.py:ComplexBatchNorm.
+``ComplexBatchNormSimple`` (DCUnet's) is two independent real BatchNorms,
+``bn_re`` and ``bn_im`` (the reference DCUnet's names). ``ComplexBatchNorm``
+(DCCRN's) whitens with the full 2x2 covariance, as below.
 Per channel: subtract the complex mean, whiten by the inverse matrix square
 root of the (Vrr, Vri; Vri, Vii) covariance, then apply a 2x2 affine
 (Wrr/Wri/Wii, Br/Bi). Parameter and buffer names are the reference torch
@@ -21,7 +23,21 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from speech_enhancement_torch.ops.batch_norm import BatchNorm
+
 ComplexPair = Tuple[torch.Tensor, torch.Tensor]
+
+
+class ComplexBatchNormSimple(nn.Module):
+    """A flax BatchNorm on each part (momentum 0.9, eps 1e-5), f32 out."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.bn_re = BatchNorm(channels, momentum, eps)
+        self.bn_im = BatchNorm(channels, momentum, eps)
+
+    def forward(self, x: ComplexPair) -> ComplexPair:
+        return self.bn_re(x[0]), self.bn_im(x[1])
 
 
 class ComplexBatchNorm(nn.Module):

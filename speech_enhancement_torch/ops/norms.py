@@ -1,8 +1,12 @@
-"""Normalization layers (counterpart of speech_enhancement_tpu/ops/norms.py).
+"""Normalization layers and the EMA smoother (counterpart of
+speech_enhancement_tpu/ops/norms.py).
 
-Only ``GlobalLayerNorm`` is ported so far (Sepformer's gLN); the
-channel-wise and cumulative norms, ``EMA`` and ``PCEN`` come with the
-models that use them. Channels-last, as in the JAX package.
+``GlobalLayerNorm`` (Sepformer's and Conv-TasNet's gLN),
+``ChannelwiseLayerNorm`` (Conv-TasNet's cLN), ``CumulativeLayerNorm``
+(causal cLN) and ``ema_scan`` (the DNN's EMA smoothers). Channels-last,
+as in the JAX package; the functional forms take the affine parameters
+so a model can keep them under the reference's names and layouts.
+``EMA`` and ``PCEN`` have no user in the port.
 """
 
 from __future__ import annotations
@@ -11,15 +15,35 @@ import torch
 from torch import nn
 
 
-class GlobalLayerNorm(nn.Module):
-    """gLN over every axis but the batch, per-channel affine, channels last.
+def global_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """gLN over every axis but the batch, channels last (the JAX arithmetic:
+    statistics in f32, the affine folded into a scale and a shift rounded
+    to x's dtype)."""
+    dims = tuple(range(1, x.dim()))
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mean = x.float().mean(dim=dims).reshape(shape)
+    var = (x * x).float().mean(dim=dims).reshape(shape) - mean**2
+    root = torch.sqrt(torch.clamp(var, min=0.0) + eps)
+    scale = (weight / root).to(x.dtype)
+    shift = (bias - weight * mean / root).to(x.dtype)
+    return x * scale + shift
 
-    The JAX arithmetic: mean and E[x^2] in f32 (x * x taken in x's dtype),
-    var = E[x^2] - mean^2 clipped at zero, then ``x * scale + shift`` in
-    x's dtype with ``scale = gamma / sqrt(var + eps)`` and ``shift = beta -
-    gamma * mean / sqrt(var + eps)`` rounded to it. Parameters are
-    ``weight`` (gamma) and ``bias`` (beta), the reference's GroupNorm names.
-    """
+
+def channelwise_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                           eps: float = 1e-8) -> torch.Tensor:
+    """cLN over the last (channel) axis at each step: mean and E[x^2] in f32
+    (x * x taken in x's dtype), ``(x - mean) / sqrt(var + eps) * weight +
+    bias`` in f32, rounded to x's dtype."""
+    mean = x.float().mean(dim=-1, keepdim=True)
+    var = (x * x).float().mean(dim=-1, keepdim=True) - mean**2
+    inv = 1.0 / torch.sqrt(torch.clamp(var, min=0.0) + eps)
+    return ((x.float() - mean) * inv * weight + bias).to(x.dtype)
+
+
+class GlobalLayerNorm(nn.Module):
+    """gLN with per-channel affine, channels last. Parameters are ``weight``
+    (gamma) and ``bias`` (beta), the reference Sepformer's GroupNorm names."""
 
     def __init__(self, channels: int, eps: float = 1e-8):
         super().__init__()
@@ -28,11 +52,65 @@ class GlobalLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dims = tuple(range(1, x.dim()))
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mean = x.float().mean(dim=dims).reshape(shape)
-        var = (x * x).float().mean(dim=dims).reshape(shape) - mean**2
-        root = torch.sqrt(torch.clamp(var, min=0.0) + self.eps)
-        scale = (self.weight / root).to(x.dtype)
-        shift = (self.bias - self.weight * mean / root).to(x.dtype)
-        return x * scale + shift
+        return global_layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class ChannelwiseLayerNorm(nn.Module):
+    """cLN: normalise over the channel axis at each time step; affine."""
+
+    def __init__(self, channels: int, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return channelwise_layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class CumulativeLayerNorm(nn.Module):
+    """Causal cLN over [B, T, C]: step t is normalised by the statistics of
+    every frame <= t (pooled over past time and channels), from two
+    cumulative sums, in x's dtype as in JAX."""
+
+    def __init__(self, channels: int, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        channels = x.shape[-1]
+        cum_sum = torch.cumsum(x.sum(-1), dim=1)[..., None]
+        cum_sq = torch.cumsum((x**2).sum(-1), dim=1)[..., None]
+        count = (torch.arange(1, x.shape[1] + 1, device=x.device) * channels)
+        count = count[None, :, None].to(x.dtype)
+        mean = cum_sum / count
+        var = cum_sq / count - mean**2
+        return self.weight * (x - mean) / torch.sqrt(torch.clamp(var, min=0.0) + self.eps) \
+            + self.bias
+
+
+def ema_scan(x: torch.Tensor, alpha, dim: int = 1) -> torch.Tensor:
+    """First-order EMA along ``dim``: y_t = (1 - a) y_{t-1} + a x_t, y_-1 = 0
+    (the first output is ``a * x_0``).
+
+    A log-depth doubling scan, the counterpart of JAX's
+    ``lax.associative_scan``: each element carries the pair (A, B) of the
+    affine map y -> A y + B over its window, and round k composes every
+    element with the one 2^k steps before it, so ceil(log2 T) rounds of
+    shifted multiply-adds cover the sequence. No per-frame loop and no
+    ``(1 - a)^-t`` closed form (which overflows in f32 at a = 0.85 by T
+    501). ``alpha`` is a scalar or a per-channel tensor that broadcasts
+    against x with time on ``dim``.
+    """
+    x = x.movedim(dim, 0)
+    a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device).expand(x.shape[1:])
+    coeff = (1.0 - a).expand(x.shape)
+    val = x * a
+    shift, steps = 1, x.shape[0]
+    while shift < steps:
+        val = torch.cat([val[:shift], val[shift:] + coeff[shift:] * val[:-shift]])
+        coeff = torch.cat([coeff[:shift], coeff[shift:] * coeff[:-shift]])
+        shift *= 2
+    return val.movedim(0, dim)

@@ -258,6 +258,11 @@ class Solver:
         self.test_timing: Dict[str, float] = {}
         self._profiler = None
 
+        if hasattr(model, "post_init_params"):
+            # the model's own fresh-start transform (Demucs's weight
+            # rescale), as the JAX Solver applies it to its initial params;
+            # a resume or a preload then overwrites what it loads
+            model.post_init_params()
         resume = str(config.solver.get("resume", "") or "")
         preload = str(config.solver.get("preloaded_model", "") or "")
         if resume:
@@ -652,12 +657,22 @@ class Solver:
         print(f"resumed from {path}")
 
     def _preload_model(self, path: str) -> None:
-        """Weights only, from a port ``.ckpt`` or a reference ``.pth`` /
-        ``.pt`` / ``.tar``: the port's keys are the reference's, so either
-        loads as it is. Keys the model does not have are ignored; a key the
-        file lacks raises."""
-        missing, _ = self.model.load_state_dict(ckpt.model_state(path), strict=False)
+        """Weights only, as the JAX Solver's preload: a reference ``.pth`` /
+        ``.pt`` / ``.tar`` loads as it is, BatchNorm running statistics
+        included (the port's keys are the reference's); a port ``.ckpt``
+        restores the parameters alone (``named_parameters``), and every
+        buffer keeps the value the model was built with, as the JAX Solver
+        restores ``{"params"}`` and leaves ``batch_stats`` at their initial
+        values. Keys the model does not have are ignored; a key the file
+        lacks raises."""
+        state = ckpt.model_state(path)
+        wanted = list(self.model.state_dict())
+        if not path.endswith((".pth", ".pt", ".tar")):
+            wanted = [name for name, _ in self.model.named_parameters()]
+            state = {k: v for k, v in state.items() if k in wanted}
+        missing = [k for k in wanted if k not in state]
         if missing:
             raise KeyError(f"{path} lacks {len(missing)} of the model's keys, e.g. "
                            f"{missing[:3]}")
+        self.model.load_state_dict(state, strict=False)
         print(f"preloaded weights from {path}")

@@ -1003,3 +1003,79 @@ def test_small_dccrn_real_lstm_on_card_matches_cpu(card, fused):
             outs.append(model(torch.from_numpy(wav).to(dev)).cpu().numpy())
     assert np.isfinite(outs[0]).all()
     np.testing.assert_allclose(outs[0], outs[1], atol=2e-4)
+
+
+# -- the rest of the zoo --------------------------------------------------------
+
+ZOO_STFT = {"n_fft": 128, "hop_length": 32, "win_length": 128, "center": True}
+# the CPU tests' small models (tests/test_torch_{dnn,unet,dcunet,tcn,conv_tasnet,demucs}.py)
+ZOO_SMALL = {
+    "dnn": dict(n_layers=3, hidden_layer=64),
+    "unet": dict(unet_layer=2),
+    "wav-unet": dict(unet_nlayers=3, channels_interval=4),
+    "dcunet": dict(model_complexity=8),
+    "tcn": dict(tcn_channels=8, tcn_hidden=16, tcn_blocks=3, tcn_repeats=2),
+    "conv-tasnet": dict(N=16, L=8, B=8, H=16, P=3, X=3, R=2, audio_channels=2),
+    "demucs": dict(channels=8, depth=3, norm_starts=1, norm_groups=2, dconv_attn=2,
+                   dconv_lstm=2, fused_rnn=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_SMALL))
+def test_zoo_small_family_on_card_matches_cpu(card, name):
+    """Each family's small f32 model on the card vs the same weights on the
+    CPU (which the CPU tests hold against JAX): a forward within 2e-4 of
+    the output's peak; the small Demucs launches the LSTM forward kernel
+    eight times a call (one BLSTM layer: 2 DConv depths x 2 layers x 2
+    directions)."""
+    from speech_enhancement_torch.kernels.lstm import lstm_fwd
+    from speech_enhancement_torch.ops.stft import stft_custom
+    cfg = Config({"name": name, **ZOO_STFT, **ZOO_SMALL[name]})
+    channels = 2 if name in ("conv-tasnet", "demucs") else 1
+    wav = torch.from_numpy((0.5 * np.random.default_rng(20).standard_normal(
+        (2, channels, 4000))).astype(np.float32))
+    outs, launches = [], []
+    for dev in (card, torch.device("cpu")):
+        model, spec = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+        x = wav.to(dev)
+        if spec.domain == "stft":
+            x = stft_custom(x, cfg)
+        before = lstm_fwd.launches
+        with torch.inference_mode():
+            outs.append(model(x).cpu().numpy())
+        launches.append(lstm_fwd.launches - before)
+    assert launches == [8 if name == "demucs" else 0, 0]
+    assert np.isfinite(outs[0]).all()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=2e-4 * np.abs(outs[1]).max())
+
+
+def test_zoo_demucs_remat_on_card_relaunches_the_blstm_forward(card):
+    """The small Demucs with fused_rnn: remat recomputes each encoder layer,
+    so a train step launches the LSTM forward 16 times (8 + 8) against 8
+    without, the backward 8 times either way, and the step is the same."""
+    from speech_enhancement_torch.kernels.lstm import lstm_bwd, lstm_fwd
+    rng = np.random.default_rng(21)
+    sources = (0.5 * rng.standard_normal((2, 2, 2, 4000))).astype(np.float32)
+    mixture = sources.sum(axis=1)
+    optim = {"optim": "adam", "lr": 3e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+    results = []
+    for remat in (False, True):
+        cfg = Config({"name": "demucs", **ZOO_SMALL["demucs"], "remat": remat})
+        model, spec = build_model(cfg, device=card, generator=torch.Generator().manual_seed(8))
+        opt = get_optimizer(Config(optim), model.parameters())
+        before = (lstm_fwd.launches, lstm_bwd.launches)
+        loss, _ = train_step(model, spec, opt, mixture, sources, "l1", use_pit=True, device=card)
+        results.append(((lstm_fwd.launches - before[0], lstm_bwd.launches - before[1]),
+                        float(loss), torch.cat([p.grad.flatten() for p in model.parameters()])))
+    assert results[0][0] == (8, 8) and results[1][0] == (16, 8)
+    np.testing.assert_allclose(results[1][1], results[0][1], rtol=1e-6)
+    torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-7)
+
+
+# (T, B, H): Demucs's DConv BLSTM layers at a short T, f32 (its path)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", [(6, 8, 256), (6, 8, 512), (6, 192, 512)])
+def test_zoo_lstm_kernels_at_the_demucs_shapes(card, shape, reverse):
+    _check_lstm_fwd(card, shape, reverse, torch.float32)
+    design, _ = _check_lstm_bwd(card, shape, reverse, torch.float32)
+    assert design == "first"

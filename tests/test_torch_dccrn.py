@@ -390,8 +390,8 @@ def test_build_model_needs_cuda_or_explicit_cpu():
 def test_build_model_names_later_slices_and_seeds_weights():
     mel, spec = build_model(Config({"name": "mel-rnn"}), device="cpu")  # ported: builds
     assert type(mel).__name__ == "MelRNN" and spec.domain == "stft"
-    with pytest.raises(NotImplementedError, match="rest of the zoo"):
-        build_model(Config({"name": "conv-tasnet"}), device="cpu")
+    tasnet, spec = build_model(Config({"name": "conv-tasnet"}), device="cpu")  # ported too
+    assert type(tasnet).__name__ == "ConvTasNet" and spec.multi_speaker
     with pytest.raises(ValueError):
         build_model(Config({"name": "no-such-model"}), device="cpu")
     fused, _ = build_model(Config({"name": "dccrn", **SMALL, "use_fused_blocks": True}),
