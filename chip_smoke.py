@@ -11,7 +11,8 @@ serving and training paths (the two block kernels and their four backward
 kernels at all twelve blocks of DCCRN; the LSTM recurrence forward at CRN's
 serving and training shapes and at rnn-stft-mask's in both directions, its
 backward at CRN's training shape, and a small f32 case with an initial
-state; the STFT and the LSTM backward are also timed on their first
+state; the STFT, the LSTM backward at CRN's shape and both LSTM kernels at
+every f32 case (the split-f32 designs) are also timed on their first
 designs in the same run, beside their bounds and library calls: ``torch.matmul``
 and cuFFT for the STFT, cuDNN's forward + backward and its backward alone
 for the LSTM), then serves three 10 s requests with DCCRN at the full width of
@@ -173,7 +174,9 @@ SMALL_FUSED = {"name": "dccrn", "win_len": 128, "win_inc": 32, "fft_len": 256,
 # along t. Bounds: every element within two steps plus 2^-8, the mean
 # within 4e-4 (7x the drift). Backward (dgates, dh0, dc0, f32 carries):
 # within 1e-2 of each output's largest magnitude (measured 4.0e-3, 9.8e-4,
-# 2.2e-4). f32 (full-f32 FMA on both sides, 64 steps): 1e-4.
+# 2.2e-4). f32: 1e-4 (the split-f32 design's three TF32 products, or the
+# first design's f32 FMA, against the plain version's f32 matmul; one TF32
+# product alone misses it, tests/test_torch_lstm_f32_ring.py).
 LSTM_RTOL, LSTM_ATOL, LSTM_MEAN = 2.0**-6, 2.0**-8, 4e-4
 LSTM_BWD_RTOL, LSTM_F32_TOL = 1e-2, 1e-4
 CRN_TRAIN_BATCH = 16  # configs/crn_vbd.yaml solver.batch_size, 4 s each
@@ -1166,14 +1169,22 @@ def lstm_work(steps, batch, hidden, backward=False, itemsize=2):
 
 
 def lstm_bound(row, backward=False):
-    """The case's least time: FLOPs at the dtype's peak rate (bf16 tensor
-    cores, or f32 FMA) against its bytes at the HBM rate."""
+    """The case's least time: FLOPs at the design's peak rate (bf16 tensor
+    cores; f32: three TF32 products a product for the split-f32 design, f32
+    FMA for the first) against its bytes at the HBM rate. An f32 case
+    reports both bounds."""
     bf16 = row["dtype"] == "bfloat16"
     flops, nbytes = lstm_work(row["steps"], row["batch"], row["hidden"], backward,
                               2 if bf16 else 4)
     row["gflop"] = flops / 1e9
-    row["flops_bound_ms"] = flops / (BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S) * 1e3
     row["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    if bf16:
+        row["flops_bound_ms"] = flops / BF16_FLOPS_PER_S * 1e3
+    else:
+        row["split_f32_bound_ms"] = max(3 * flops / TF32_FLOPS_PER_S * 1e3, row["bytes_bound_ms"])
+        row["f32_fma_bound_ms"] = max(flops / F32_FLOPS_PER_S * 1e3, row["bytes_bound_ms"])
+        row["flops_bound_ms"] = (3 * flops / TF32_FLOPS_PER_S if row["design"] == "f32"
+                                 else flops / F32_FLOPS_PER_S) * 1e3
     row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
     row["bound_by"] = "operations" if row["flops_bound_ms"] > row["bytes_bound_ms"] else "bytes"
     row["us_per_step"] = row["ms"] * 1e3 / row["steps"]
@@ -1240,51 +1251,93 @@ LSTM_BWD_CASES = (
     ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512))
 
 
+def lstm_fwd_first(x_proj, w_hh, h0, c0, reverse):
+    """lstm_fwd's launch with w_hhᵀ 4 bytes off a 16-byte address, which
+    takes the first design (the wrapper's own w_hhᵀ is aligned); not
+    counted in lstm_fwd.launches."""
+    steps, batch, g4 = x_proj.shape
+    w_t = torch.empty(w_hh.numel() + 1, device=x_proj.device, dtype=x_proj.dtype)[1:]
+    w_t = w_t.view(g4, g4 // 4).copy_(w_hh.t())
+    c = c0.float().clone()
+    h_seq = x_proj.new_empty((steps, batch, g4 // 4))
+    c_seq, gates = torch.empty_like(h_seq), torch.empty_like(x_proj)
+    bar = torch.zeros(2, dtype=torch.int32, device=x_proj.device)
+    lstm_k._launch("lstm_fwd", [int(x_proj.dtype == torch.bfloat16), x_proj.data_ptr(),
+                                w_t.data_ptr(), h0.data_ptr(), c.data_ptr(), h_seq.data_ptr(),
+                                c_seq.data_ptr(), gates.data_ptr(), bar.data_ptr(), steps, batch,
+                                g4 // 4, int(reverse)], x_proj)
+    return h_seq, c_seq, gates
+
+
 def lstm_fwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim) -> dict:
     """The forward kernel vs its plain version at one shape, timed beside
     cuDNN's torch.nn.LSTM forward on the layer's input (more work: it
     includes the input projection; a reversed case against the same
-    unidirectional call)."""
+    unidirectional call). bf16 takes the ring, f32 the split-f32 design;
+    an f32 case also times the first design in the same run (w_hhᵀ 4
+    bytes off a 16-byte address takes it)."""
     bf16 = dtype == torch.bfloat16
     args = lstm_inputs(gen, steps, batch, hidden, dtype, dev)
+    design = lstm_k.lstm_fwd_design(dtype, hidden, batch)[0]
     got = lstm_k.lstm_fwd(*args, reverse)
     want = lstm_k.fused_lstm_plain(*args, reverse)
     torch.cuda.synchronize()
     err, mean = lstm_close(got, want, bf16)
-    if not np.isfinite(mean):
-        fail(f"lstm_fwd ({tag}) disagrees with plain: max abs err {err}, mean {mean} (bounds "
-             + (f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean {LSTM_MEAN:g})" if bf16 else
-                f"|d| <= {LSTM_F32_TOL:g}(1 + |ref|))"))
+    if design != ("ring" if bf16 else "f32") or not np.isfinite(mean):
+        fail(f"lstm_fwd ({tag}, {design}) disagrees with plain: max abs err {err}, mean {mean} "
+             + (f"(bounds |d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean {LSTM_MEAN:g})" if bf16
+                else f"(bound |d| <= {LSTM_F32_TOL:g}(1 + |ref|))"))
+    first = {}
+    if not bf16:
+        if lstm_k.lstm_fwd_design(dtype, hidden, batch, aligned=False)[0] != "first":
+            fail("lstm_fwd: an unaligned w_hhᵀ does not take the first design")
+        first_err, _ = lstm_close(lstm_fwd_first(*args, reverse), want, bf16)
+        if not np.isfinite(first_err):
+            fail(f"lstm_fwd first design ({tag}) disagrees with plain (bound |d| <= "
+                 f"{LSTM_F32_TOL:g}(1 + |ref|))")
+        first = {"first_design_max_abs_err": first_err,
+                 "first_design_ms": cuda_ms(lambda: lstm_fwd_first(*args, reverse), reps=3,
+                                            warmup=1)}
     del got, want
     cudnn = torch.nn.LSTM(in_dim, hidden).to(dev, dtype)
     x = torch.randn(steps, batch, in_dim, device=dev, generator=gen).to(dtype)
     with torch.no_grad():
         library = cuda_ms(lambda: cudnn(x), reps=3, warmup=1)
     row = {"case": tag, "steps": steps, "batch": batch, "hidden": hidden,
-           "dtype": str(dtype).split(".")[-1], "reverse": reverse, "max_abs_err": err,
-           "mean_abs_err": mean,
+           "dtype": str(dtype).split(".")[-1], "reverse": reverse, "design": design,
+           "max_abs_err": err, "mean_abs_err": mean,
            "ms": cuda_ms(lambda: lstm_k.lstm_fwd(*args, reverse), reps=3, warmup=1),
            "plain_ms": cuda_ms(lambda: lstm_k.fused_lstm_plain(*args, reverse), reps=1,
                                warmup=0),
-           "library_ms": library}
+           "library_ms": library, **first}
     lstm_bound(row)
-    log(f"lstm_fwd {tag}: T {steps}, B {batch}, H {hidden} {row['dtype']}; max abs "
-        f"err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms = "
+    log(f"lstm_fwd {tag}: T {steps}, B {batch}, H {hidden} {row['dtype']}, design {design}; "
+        f"max abs err {err:.3e}, mean {mean:.2e}; kernel {row['ms']:.3f} ms = "
         f"{row['us_per_step']:.2f} us a step ({row['gflop'] / row['ms']:.2f} TFLOP/s), "
         f"plain {row['plain_ms']:.3f} ms, cuDNN "
         f"nn.LSTM forward ({in_dim} -> {hidden}) {library:.3f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+        + ("" if bf16 else f"; the first design in the same run {row['first_design_ms']:.3f} ms")
+        + lstm_f32_bounds(row))
     return row
+
+
+def lstm_f32_bounds(row) -> str:
+    """Both bounds of an f32 case (none for bf16)."""
+    if row["dtype"] != "float32":
+        return ""
+    return (f"; bounds split-f32 {row['split_f32_bound_ms']:.4f} ms, f32 FMA "
+            f"{row['f32_fma_bound_ms']:.4f} ms")
 
 
 def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
                   first_design=False) -> dict:
     """The backward kernel vs its plain version at one shape, on the plain
     forward's outputs: dgates, dh0 and dc0 within LSTM_BWD_RTOL (bf16, the
-    ring) or LSTM_F32_TOL (f32, the first design) of each one's largest;
+    ring) or LSTM_F32_TOL (f32, the split-f32 design) of each one's largest;
     timed beside cuDNN's nn.LSTM forward + backward and its backward alone.
     ``first_design`` also times the first design in the same run (w_hh 2
-    bytes off a 16-byte address takes it)."""
+    or 4 bytes off a 16-byte address takes it)."""
     bf16 = dtype == torch.bfloat16
     tol = LSTM_BWD_RTOL if bf16 else LSTM_F32_TOL
     x_proj, w_hh, h0, c0 = lstm_inputs(gen, steps, batch, hidden, dtype, dev)
@@ -1301,9 +1354,10 @@ def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
     rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
            for g, w in zip(got, want)]
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-    # the ring design is what the bf16 cases of the earlier paths take; the
-    # Demucs bf16 shapes (on no path) take whichever the plan picks
-    want_design = design if tag.startswith("demucs") else ("ring" if bf16 else "first")
+    # the ring design is what the bf16 cases of the earlier paths take (the
+    # Demucs bf16 shapes, on no path, take whichever the plan picks), the
+    # split-f32 design every f32 case
+    want_design = "f32" if not bf16 else design if tag.startswith("demucs") else "ring"
     if design != want_design or not max(rel) <= tol:
         fail(f"lstm_bwd {tag} ({design}) disagrees with plain: dgates, dh0, dc0 {rel} of their "
              f"largest (bound {tol:g})")
@@ -1350,19 +1404,22 @@ def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
         f"{row['library_ms']:.3f} ms, its backward alone {row['cudnn_bwd_ms']:.3f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
         + (f"; the first design in the same run {row['first_design_ms']:.3f} ms (within "
-           f"{[f'{r:.2e}' for r in row['first_design_rel_err']]})" if first_design else ""))
+           f"{[f'{r:.2e}' for r in row['first_design_rel_err']]})" if first_design else "")
+        + lstm_f32_bounds(row))
     return row
 
 
 def lstm_kernel_phase(dev) -> dict:
     """Both LSTM kernels vs their plain versions on the card at every case
-    of LSTM_FWD_CASES / LSTM_BWD_CASES (T 501), the backward's first design
-    timed beside the ring at CRN's training shape, and a small f32 case with
-    an initial state both ways. The kernel line's numbers are CRN's (serve
-    for the forward, train for the backward); every case rides along."""
+    of LSTM_FWD_CASES / LSTM_BWD_CASES (T 501), the first designs timed
+    beside the others at CRN's bf16 training shape (the backward) and at
+    every f32 case (both), and a small f32 case with an initial state both
+    ways. The kernel line's numbers are CRN's (serve for the forward, train
+    for the backward); every case rides along."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rows = [lstm_fwd_case(dev, gen, *case) for case in LSTM_FWD_CASES]
-    bwd_rows = [lstm_bwd_case(dev, gen, *case, first_design=case[0] == "crn train")
+    bwd_rows = [lstm_bwd_case(dev, gen, *case,
+                              first_design=case[0] == "crn train" or case[4] == torch.float32)
                 for case in LSTM_BWD_CASES]
 
     # small f32 with an initial state, both directions, forward and backward
@@ -1385,8 +1442,9 @@ def lstm_kernel_phase(dev) -> dict:
             f"{err:.2e}, backward {rel:.2e} of the largest (bound {LSTM_F32_TOL:g})")
 
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    shown = ("case", "dtype", "batch", "hidden", "reverse", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms")
+    shown = ("case", "dtype", "batch", "hidden", "reverse", "design", "max_abs_err", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "first_design_ms",
+             "split_f32_bound_ms", "f32_fma_bound_ms")
     return {
         "lstm_fwd": {
             "name": "lstm_fwd", "route": "cuda",
@@ -1395,7 +1453,7 @@ def lstm_kernel_phase(dev) -> dict:
             "shape": "CRN serve: T 501, B 192, H 1792 bf16 (one layer)",
             "tolerance": f"|d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean <= {LSTM_MEAN:g}",
             **{k: rows[0][k] for k in keys},
-            "cases": [{k: r[k] for k in shown} for r in rows]},
+            "cases": [{k: r[k] for k in shown if k in r} for r in rows]},
         "lstm_bwd": {
             "name": "lstm_bwd", "route": "cuda",
             "source": "speech_enhancement_torch/kernels/csrc/lstm_bwd.cu",
@@ -1403,7 +1461,7 @@ def lstm_kernel_phase(dev) -> dict:
             "shape": "CRN train: T 501, B 16, H 1792 bf16 (one layer)",
             "tolerance": f"{LSTM_BWD_RTOL:g} of each output's largest",
             **{k: bwd_rows[0][k] for k in keys},
-            "cases": [{k: r[k] for k in shown} for r in bwd_rows]},
+            "cases": [{k: r[k] for k in shown if k in r} for r in bwd_rows]},
     }
 
 

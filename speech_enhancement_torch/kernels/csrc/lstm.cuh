@@ -29,7 +29,12 @@
 // mma registers (lstm_fwd.cu, lstm_fwd_ring), the backward streams each
 // warp's K range of dgates through a ring of its own and keeps dh and dc in
 // registers (lstm_bwd.cu, lstm_bwd_ring); both share the grid barrier, the
-// unit split and the cooperative launch below.
+// unit split and the cooperative launch below. Nor do the f32 paths whose
+// plan fits (namespace tc below: lstm_fwd_f32, lstm_bwd_f32): split-f32
+// products on tensor cores in the backward ring's structure. gemm_chunk is
+// left to bf16 rows that are not 16-byte aligned and to the f32 shapes that
+// no split-f32 plan takes (wider than about 790 units, H % 4 != 0 in the
+// forward, more than 16 x 256 (b, u) pairs a block, unaligned pointers).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -335,11 +340,311 @@ int launch(void (*kernel)(Args, P), const Args& args, const P& plan, int blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shared memory a block may opt in to on this card (optin); returns a
+// cudaError_t.
+inline int optin_smem(int& optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
+}
+
 inline int multiprocessors() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
   return sms;
 }
+
+// cp.async.wait_group takes an immediate: a ring's depth is a plan value.
+__device__ __forceinline__ void wait_rounds(int n) {
+  switch (n) {
+    case 0: mmautil::cp_async_wait<0>(); break;
+    case 1: mmautil::cp_async_wait<1>(); break;
+    case 2: mmautil::cp_async_wait<2>(); break;
+    case 3: mmautil::cp_async_wait<3>(); break;
+    case 4: mmautil::cp_async_wait<4>(); break;
+    case 5: mmautil::cp_async_wait<5>(); break;
+    default: mmautil::cp_async_wait<6>(); break;
+  }
+}
+
+// -- the split-f32 designs -----------------------------------------------------
+//
+// lstm_fwd_f32 (lstm_fwd.cu) and lstm_bwd_f32 (lstm_bwd.cu) share the
+// structure of the bf16 backward's ring: the step's product takes the batch
+// as the mma's M (m16 tiles of 16 rows; B 8 is half a tile, its other rows
+// zero-filled), the block's columns as N and a sequence tensor's row as K
+// (forward: h_prev, K = H, columns 4u + gate, unit-major; backward:
+// dgates[t], K = 4H, column u). The eight warps split into wm along the
+// batch and wk along K; each streams its own rows and K range of the
+// tensor, which other blocks write during the launch, through a cp.async.cg
+// ring of its own (16 bytes a copy, zero-filled past B and K, one commit
+// group a round, published by a warp barrier), so the K loop has no block
+// barrier. A round is KC = 32 k: a slab of mw * 16 rows x 32 floats at a
+// row pitch of 36 floats (4 words mod 32), so the ldmatrix.x4 that reads an
+// m16 x k8 TF32 fragment (rows 0-7 | 8-15 x words 0-3 | 4-7) hits eight
+// distinct 16-byte bank groups a phase.
+//
+// The products are split-f32 (3xTF32, as stft.cu's): one TF32 product keeps
+// 10 mantissa bits, too few for the f32 path's 1e-4, so each operand is
+// split into a TF32 big part and the TF32 rounding of the rest, and three
+// mma.sync m16n8k8 (small x big + big x small + big x big) sum in f32. The
+// slice (the block's weights) is split once, at load, and kept resident in
+// the mma's fragment order: element [k8 step s][n8 tile n][column c][q] is a
+// float4 {big b0, big b1, small b0, small b1}, b0 = W[8s + q][8n + c], b1 =
+// W[8s + q + 4][8n + c], so lane (c, q) reads its B fragment with one 16-byte
+// load, and the 32 lanes read consecutive words (a column past `cols` reads
+// column cols - 1 and is zeroed in registers). The ring's A fragments are
+// split in registers as they are loaded. Both splits run on the integer and
+// FMA pipes (mmautil::split_tf32: the big part rounded, the small part
+// truncated), not by cvt.rna.tf32.
+//
+// Each warp writes its f32 partials once a chunk into its own ring (no copy
+// is then in flight), and after one block barrier the thread that owns (b,
+// u) sums the K splits in a fixed order and runs the pointwise part from
+// registers: the columns of one unit sit side by side (the forward's four
+// gates are one float4), and the thread keeps its carries (the forward's c,
+// the backward's dh and dc) in registers across all T steps.
+namespace tc {
+
+constexpr int KC = 32;       // k a round
+constexpr int SP = KC + 4;   // slab row pitch (floats)
+constexpr int MIN_STAGES = 3;
+constexpr int MAX_STAGES = 8;
+// fixed costs in k of one m16 tile's split products, as the bf16 backward's
+// ROUND_K and CHUNK_K (lstm_bwd.cu) with a k of split products costing
+// about six of bf16's: a round's wait, copies and loop, a chunk's ring fill
+constexpr int ROUND_K = 8;
+constexpr int CHUNK_K = 64;
+
+// m16 batch tiles a warp holds: the accumulators are mw * nt * 4 floats
+__host__ __device__ constexpr int max_mw(int nt) { return nt <= 2 ? 4 : 2; }
+
+// Computed on the host from the shapes (make_plan below); mirrored line for
+// line by kernels/lstm.py:f32_plan.
+struct Plan {
+  int units;        // U
+  int nt;           // n8 column tiles: ceil(4U / 8) forward, 1 backward
+  int cols;         // columns a tile of the slice stores: 8 forward, U backward
+  int k;            // K: H forward, 4H backward
+  int kr;           // rounds over K: ceil(K / KC)
+  int stages;       // slabs in each warp's ring
+  int wm, wk;       // warps along the batch and along K (wm * wk = 8)
+  int mw;           // m16 batch tiles a warp holds
+  int nb;           // batch rows a chunk: wm * mw * 16
+  int chunks;       // ceil(B / nb)
+  int rpw;          // rounds a K split: ceil(kr / wk)
+  int pitch;        // floats a partial row: 16 (nt / 2) + 8 (conflict-free float2 stores)
+  int slab_bytes;   // mw * 16 * SP * 4
+  int region;       // bytes of a warp's ring; its partials alias it
+  int ring_offset;  // bytes of the split slice: kr * KC / 8 k8 steps x nt x cols x 64
+  int ppt;          // (b, u) pairs a thread owns: 1, 4 or 16
+  int smem_bytes;
+};
+
+// False where no plan fits (the caller then takes the first design): more
+// than 8 columns a tile, more than 16 x 256 (b, u) pairs a block, or no
+// ring of MIN_STAGES slabs beside the split slice.
+inline bool make_plan(int units, int nt, int cols, int k, int batch, int smem_limit,
+                      Plan& best) {
+  if (units <= 0 || cols > 8 || nt < 1 || nt > 4) return false;
+  const long long pairs = static_cast<long long>(batch) * units;
+  const int ppt = pairs <= THREADS ? 1 : pairs <= 4 * THREADS ? 4 : pairs <= 16 * THREADS ? 16 : 0;
+  if (ppt == 0) return false;
+  const int kr = (k + KC - 1) / KC;
+  const long long slice = static_cast<long long>(kr) * (KC / 8) * nt * cols * 64;
+  if (slice >= smem_limit) return false;
+  const int ring_offset = static_cast<int>(slice);
+  const int region_max = (smem_limit - ring_offset) / WARPS / 16 * 16;
+  const int pitch = 16 * (nt / 2) + 8;
+  long long best_cost = 0;
+  int best_flight = 0;
+  for (int wm = 1; wm <= WARPS; wm *= 2) {
+    const int wk = WARPS / wm;
+    for (int mw = 1; mw <= max_mw(nt); ++mw) {
+      const int slab = mw * 16 * SP * 4;
+      const int part = mw * 16 * pitch * 4;
+      int stages = region_max / slab;
+      if (stages > MAX_STAGES) stages = MAX_STAGES;
+      if (stages < MIN_STAGES) continue;
+      const int region = stages * slab > part ? stages * slab : part;
+      if (region > region_max) continue;
+      const int nb = wm * mw * 16;
+      const int chunks = (batch + nb - 1) / nb;
+      const int rpw = (kr + wk - 1) / wk;
+      // the k of one m16 tile a warp multiplies a step, with each round and
+      // each chunk's ring fill counted as ROUND_K and CHUNK_K more, and the
+      // bytes of its ring in flight while it multiplies one slab
+      const long long cost =
+          static_cast<long long>(chunks) * (mw * rpw * (KC + ROUND_K) + CHUNK_K);
+      const int flight = (stages - 1) * slab;
+      if (best_cost > 0 && (cost > best_cost || (cost == best_cost && flight <= best_flight)))
+        continue;
+      best_cost = cost;
+      best_flight = flight;
+      best.units = units;
+      best.nt = nt;
+      best.cols = cols;
+      best.k = k;
+      best.kr = kr;
+      best.stages = stages;
+      best.wm = wm;
+      best.wk = wk;
+      best.mw = mw;
+      best.nb = nb;
+      best.chunks = chunks;
+      best.rpw = rpw;
+      best.pitch = pitch;
+      best.slab_bytes = slab;
+      best.region = region;
+      best.ring_offset = ring_offset;
+      best.ppt = ppt;
+      best.smem_bytes = ring_offset + WARPS * region;
+    }
+  }
+  return best_cost > 0;
+}
+
+// The slice's element W[k][column c of n8 tile n], split, into its place
+// in fragment order (ws: the slice's floats).
+__device__ __forceinline__ void put_split(float* ws, const Plan& p, int k, int n, int c,
+                                          float v) {
+  uint32_t* f = reinterpret_cast<uint32_t*>(ws) +
+                ((((k >> 3) * p.nt + n) * p.cols + c) * 4 + (k & 3)) * 4 + ((k >> 2) & 1);
+  mmautil::split_tf32(v, f[0], f[2]);
+}
+
+// This warp's products of batch chunk c: acc[m][n] = its m16 tiles of
+// src's rows ([B, ld] f32, written by other blocks; m < nv, the tiles that
+// hold batch rows) times the slice's column tile n, over its split's
+// rounds of K (a contiguous range, walked from the block's own starting
+// round, so the blocks do not all ask L2 for the same lines at once),
+// through its ring. Ends with the warp's f32 partials in its ring, [mw *
+// 16 rows][pitch] (rows m * 16 + g, columns 8n + 2q, as the accumulators
+// hold them).
+template <int NT, int MW>
+__device__ __forceinline__ void warp_chunk(const Plan& p, const float* ws, unsigned char* smem,
+                                           const float* src, int ld, int batch, int c) {
+  constexpr int C = KC / 4;   // 16-byte chunks a slab row
+  constexpr int RPV = 32 / C; // slab rows a warp's copy instruction covers
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int split = warp / p.wm, wmi = warp - split * p.wm;
+  unsigned char* region = smem + p.ring_offset + warp * p.region;
+  const int row0 = c * p.nb + wmi * p.mw * 16;  // the warp's first batch row
+  int nv = (batch - row0 + 15) / 16;            // its m16 tiles that hold batch rows
+  nv = nv < 0 ? 0 : (nv < p.mw ? nv : p.mw);
+  const int r_begin = split * p.rpw;
+  const int ns = p.kr - r_begin < p.rpw ? (p.kr - r_begin > 0 ? p.kr - r_begin : 0) : p.rpw;
+  const int r_first = r_begin + (ns > 0 ? static_cast<int>(blockIdx.x % ns) : 0);
+  float acc[MW][NT][4];
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  // the copies of a round: instruction v copies row crow + v RPV, chunk ch,
+  // at k r KC + 4 ch; zero past B and K
+  const int ch = lane % C, crow = lane / C;
+  const int copies = nv * 16 / RPV;
+  const float* src_lane = src + static_cast<long long>(row0 + crow) * ld + ch * 4;
+  const int rows_left = batch - row0 - crow;
+  const int r_end = r_begin + ns;
+  int r_next = r_first, slot_next = 0, issued = 0;
+  const auto issue = [&]() {
+    if (issued < ns) {
+      float* slab = reinterpret_cast<float*>(region + slot_next * p.slab_bytes);
+      const bool k_ok = r_next * KC + ch * 4 < p.k;
+      const float* s = src_lane + r_next * KC;
+#pragma unroll
+      for (int v = 0; v < MW * 16 / RPV; ++v) {
+        if (v >= copies) break;
+        const int row = crow + v * RPV;
+        const bool ok = k_ok && v * RPV < rows_left;
+        mmautil::cp_async16(slab + row * SP + ch * 4,
+                            ok ? s + static_cast<long long>(v * RPV) * ld : src, ok);
+      }
+      if (++r_next == r_end) r_next = r_begin;
+      if (++slot_next == p.stages) slot_next = 0;
+    }
+    mmautil::cp_async_commit();  // an empty group past the last round keeps the count
+    ++issued;
+  };
+  for (int i = 0; i < p.stages - 1; ++i) issue();
+
+  // ldmatrix: matrix lane / 8 of an m16 x k8 tile is (rows 0-7 | 8-15) x
+  // (words 0-3 | 4-7): a0, a1, a2, a3 of the TF32 A fragment
+  const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * SP + (lane >> 4) * 4;
+  const bool b_zero = g >= p.cols;
+  const float4* b_lane =
+      reinterpret_cast<const float4*>(ws) + (b_zero ? p.cols - 1 : g) * 4 + q;
+  int r_cur = r_first, slot_cur = 0;
+  for (int j = 0; j < ns; ++j) {
+    wait_rounds(p.stages - 2);  // this lane's copies of round j have landed
+    __syncwarp();               // the warp's have, and it is done with the slot it refills
+    issue();
+    if (nv > 0) {
+      const float* slab = reinterpret_cast<const float*>(region + slot_cur * p.slab_bytes);
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const int s8 = r_cur * (KC / 8) + kk;
+        uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          float4 v = b_lane[(s8 * NT + n) * p.cols * 4];
+          if (b_zero) v = make_float4(0.f, 0.f, 0.f, 0.f);
+          bb[n][0] = __float_as_uint(v.x);
+          bb[n][1] = __float_as_uint(v.y);
+          bs[n][0] = __float_as_uint(v.z);
+          bs[n][1] = __float_as_uint(v.w);
+        }
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+          if (m < nv) {
+            uint32_t raw[4], ab[4], as[4];
+            mmautil::ldsm_x4(raw, reinterpret_cast<const mmautil::bf16*>(
+                                      slab + m * 16 * SP + a_off + kk * 8));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mmautil::split_tf32(__uint_as_float(raw[e]), ab[e], as[e]);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              mmautil::mma_tf32(acc[m][n], as, bb[n]);
+              mmautil::mma_tf32(acc[m][n], ab, bs[n]);
+              mmautil::mma_tf32(acc[m][n], ab, bb[n]);
+            }
+          }
+      }
+    }
+    if (++r_cur == r_end) r_cur = r_begin;
+    if (++slot_cur == p.stages) slot_cur = 0;
+  }
+
+  __syncwarp();  // every lane's copies have landed and its reads are done
+  float* part = reinterpret_cast<float*>(region);
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+    if (m < nv)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float* o = part + (m * 16 + g) * p.pitch + n * 8 + 2 * q;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[m][n][0], acc[m][n][1]);
+        *reinterpret_cast<float2*>(o + 8 * p.pitch) = make_float2(acc[m][n][2], acc[m][n][3]);
+      }
+}
+
+// Where batch row b of a chunk's partials lives: the region of warp
+// (split sp, batch group wg) is smem + ring_offset + (sp * wm + wg) * region,
+// and the row is bl - wg * mw * 16 (bl: b's index in the chunk).
+__device__ __forceinline__ const float* partial_row(const unsigned char* smem, const Plan& p,
+                                                    int sp, int bl) {
+  const int wg = bl / (p.mw * 16);
+  return reinterpret_cast<const float*>(smem + p.ring_offset + (sp * p.wm + wg) * p.region) +
+         (bl - wg * p.mw * 16) * p.pitch;
+}
+
+}  // namespace tc
 
 }  // namespace lstm

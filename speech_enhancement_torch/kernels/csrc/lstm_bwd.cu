@@ -27,11 +27,21 @@
 // one grid barrier publishes dgates[t]; then the block multiplies its rows
 // by all of dgates[t] (K = 4H, from L2) for its units' next dh. dh and dc
 // live in the f32 output arrays dh0 and dc0, which only the owning block
-// touches, so one barrier a step suffices. The f32 path, bf16 rows that
-// are not 16-byte aligned (4H % 8 != 0, or unaligned dgates or w_hh) and
-// batches of more than 16 x 256 (b, u) pairs a block keep this first design
-// (lstm_bwd_kernel: gemm_chunk's register-staged chunks, dh and dc in device
-// memory).
+// touches, so one barrier a step suffices. bf16 rows that are not 16-byte
+// aligned (4H % 8 != 0, or unaligned dgates or w_hh), f32 with unaligned
+// dgates or w_hh or wider than about 790 units, and batches of more than
+// 16 x 256 (b, u) pairs a block keep this first design (lstm_bwd_kernel:
+// gemm_chunk's register-staged chunks, dh and dc in device memory).
+//
+// The f32 path whose plan fits (lstm_bwd_f32) is the bf16 ring below with
+// split-f32 products (lstm.cuh, namespace tc): the batch as M, the block's
+// U units as the columns of one n8 tile (the split slice stores only
+// those: 16 KB at H 256, 64 KB at H 512; the lanes of units past U zero
+// their B fragment), K = 4H split over the warps, each warp's rows and K
+// range of dgates[t] (f32) through its own cp.async ring, the A fragments
+// split in registers, three mma.sync m16n8k8 a k8 step, dh and dc in
+// registers across all T steps, and the next step's pointwise operands
+// loaded right after the grid barrier.
 //
 // The bf16 path with 16-byte rows (lstm_bwd_ring) is built around the
 // step's latency, as the forward's lstm_fwd_ring is. At CRN's train shape
@@ -267,18 +277,7 @@ inline bool make_plan(int units, int hidden, int batch, int smem_limit, Plan& be
   return best_cost > 0;
 }
 
-// cp.async.wait_group takes an immediate: the ring's depth is a plan value.
-__device__ __forceinline__ void wait_rounds(int n) {
-  switch (n) {
-    case 0: mmautil::cp_async_wait<0>(); break;
-    case 1: mmautil::cp_async_wait<1>(); break;
-    case 2: mmautil::cp_async_wait<2>(); break;
-    case 3: mmautil::cp_async_wait<3>(); break;
-    case 4: mmautil::cp_async_wait<4>(); break;
-    case 5: mmautil::cp_async_wait<5>(); break;
-    default: mmautil::cp_async_wait<MAX_STAGES - 2>(); break;
-  }
-}
+using lstm::wait_rounds;
 
 template <int PPT, int KC>
 __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_ring(const BwdArgs a, const Plan p) {
@@ -551,34 +550,166 @@ inline int launch(const BwdArgs& a, const Plan& p, int blocks, cudaStream_t stre
 
 }  // namespace ring
 
-// Which design run() takes for these shapes (1: the ring, 0: the first
-// design; -1: neither fits), and the ring's plan when it takes it.
+// -- the split-f32 path ------------------------------------------------------
+
+namespace f32 {
+
+using lstm::THREADS;
+using lstm::tc::Plan;
+
+// The plan of the f32 design for U units a block: N = U columns (unit u at
+// column u), K = 4H; false where it does not fit.
+inline bool make_plan(int units, int hidden, int batch, int smem_limit, Plan& p) {
+  return lstm::tc::make_plan(units, 1, units, 4 * hidden, batch, smem_limit, p);
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(THREADS, 1) lstm_bwd_f32(const BwdArgs a, const Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ws = reinterpret_cast<float*>(smem);
+  const float* gates = static_cast<const float*>(a.gates);
+  const float* cseq = static_cast<const float*>(a.cseq);
+  const float* cprev = static_cast<const float*>(a.cprev);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* w = static_cast<const float*>(a.w);
+  float* dgates = static_cast<float*>(a.dgates);
+  const int H = a.hidden, B = a.batch, U = p.units, G4 = 4 * H;
+  const int j0 = blockIdx.x * U;
+
+  // the block's slice, split once: column u is w_hh row j0 + u, 16 bytes
+  // (four k) a load; zero past 4H and past the last unit
+  {
+    const int kv = p.kr * lstm::tc::KC / 4;
+    for (int idx = threadIdx.x; idx < U * kv; idx += THREADS) {
+      const int u = idx / kv;
+      const int k = (idx - u * kv) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j0 + u < H && k < G4)
+        v = *reinterpret_cast<const float4*>(w + static_cast<long long>(j0 + u) * G4 + k);
+      lstm::tc::put_split(ws, p, k, 0, u, v.x);
+      lstm::tc::put_split(ws, p, k + 1, 0, u, v.y);
+      lstm::tc::put_split(ws, p, k + 2, 0, u, v.z);
+      lstm::tc::put_split(ws, p, k + 3, 0, u, v.w);
+    }
+    __syncthreads();
+  }
+
+  // the (b, u) pairs this thread owns: pair tid + 256 i is (b, u) =
+  // divmod(tid + 256 i, U), kept while b < B and j0 + u < H; their dh and dc
+  // in registers across the steps, their pointwise operands a step ahead
+  int pb[PPT], pu[PPT];
+  float dh[PPT], dc[PPT], gv[PPT][4], cv[PPT], cpv[PPT], dov[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const int pair = threadIdx.x + THREADS * i;
+    pb[i] = pair / U;
+    pu[i] = pair - pb[i] * U;
+    if (pb[i] >= B || j0 + pu[i] >= H) pb[i] = -1;
+    const long long o = static_cast<long long>(pb[i]) * H + j0 + pu[i];
+    dh[i] = pb[i] >= 0 ? a.dh[o] : 0.f;
+    dc[i] = pb[i] >= 0 ? a.dc[o] : 0.f;
+  }
+  const auto prefetch = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      if (pb[i] < 0) continue;
+      const long long row = static_cast<long long>(t) * B + pb[i];
+      const float* gt = gates + row * G4 + j0 + pu[i];
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) gv[i][gate] = gt[gate * H];
+      const long long o = row * H + j0 + pu[i];
+      cv[i] = cseq[o];
+      cpv[i] = cprev[o];
+      dov[i] = dout[o];
+    }
+  };
+
+  prefetch(a.reverse ? 0 : a.steps - 1);
+  for (int s = 0; s < a.steps; ++s) {
+    const int t = a.reverse ? s : a.steps - 1 - s;
+    const long long trow = static_cast<long long>(t) * B;
+    // the pointwise part for the thread's own pairs, from registers
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      if (pb[i] < 0) continue;
+      const float ig = gv[i][0], fg = gv[i][1], gg = gv[i][2], og = gv[i][3];
+      const float tc = tanhf(cv[i]);
+      const float dhv = dh[i] + dov[i];
+      const float d_o = dhv * tc;
+      const float dcv = dc[i] + dhv * og * (1.f - tc * tc);
+      const float di = dcv * gg;
+      const float df = dcv * cpv[i];
+      const float dg = dcv * ig;
+      float* dgt = dgates + (trow + pb[i]) * G4 + j0 + pu[i];
+      dgt[0] = di * ig * (1.f - ig);
+      dgt[H] = df * fg * (1.f - fg);
+      dgt[2 * H] = dg * (1.f - gg * gg);
+      dgt[3 * H] = d_o * og * (1.f - og);
+      dc[i] = dcv * fg;
+    }
+    lstm::grid_sync(a.bar, gridDim.x);  // dgates[t] of every unit is written
+    if (s + 1 < a.steps) prefetch(a.reverse ? t + 1 : t - 1);  // lands under the products
+
+    for (int c = 0; c < p.chunks; ++c) {
+      lstm::tc::warp_chunk<1, lstm::tc::max_mw(1)>(p, ws, smem, dgates + trow * G4, G4, B, c);
+      __syncthreads();  // every warp's partials are in its ring
+      // the owners sum the K splits in a fixed order
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const int bl = pb[i] - c * p.nb;
+        if (pb[i] < 0 || bl < 0 || bl >= p.nb) continue;
+        float v = 0.f;
+        for (int sp = 0; sp < p.wk; ++sp) v += lstm::tc::partial_row(smem, p, sp, bl)[pu[i]];
+        dh[i] = v;
+      }
+      if (c + 1 < p.chunks) __syncthreads();  // the next chunk's copies overwrite the partials
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    if (pb[i] < 0) continue;
+    const long long o = static_cast<long long>(pb[i]) * H + j0 + pu[i];
+    a.dh[o] = dh[i];
+    a.dc[o] = dc[i];
+  }
+}
+
+inline int launch(const BwdArgs& a, const Plan& p, int blocks, cudaStream_t stream) {
+  return p.ppt == 1   ? lstm::launch(lstm_bwd_f32<1>, a, p, blocks, stream)
+         : p.ppt == 4 ? lstm::launch(lstm_bwd_f32<4>, a, p, blocks, stream)
+                      : lstm::launch(lstm_bwd_f32<16>, a, p, blocks, stream);
+}
+
+}  // namespace f32
+
+// Which design run() takes for these shapes (2: the split-f32 design, 1:
+// the bf16 ring, 0: the first design; -1: neither fits) and its plan.
 template <typename T>
-int choose(const BwdArgs& a, int sms, int optin, ring::Plan& plan) {
+int choose(const BwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp) {
   const int units = sms > 0 ? lstm::units_per_block(a.hidden, sms) : 0;
   if (units == 0) return -1;
   constexpr int V = 16 / sizeof(T);
-  const bool vec = (4 * a.hidden) % V == 0 && reinterpret_cast<uintptr_t>(a.dgates) % 16 == 0;
-  if (sizeof(T) == 2 && vec && reinterpret_cast<uintptr_t>(a.w) % 16 == 0 &&
-      ring::make_plan(units, a.hidden, a.batch, optin, plan))
-    return 1;
-  return 0;
+  // 16-byte rows of dgates and of the slice
+  const bool rows16 = (4 * a.hidden) % V == 0 && reinterpret_cast<uintptr_t>(a.dgates) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+  if (!rows16) return 0;
+  if (sizeof(T) == 2) return ring::make_plan(units, a.hidden, a.batch, optin, rp) ? 1 : 0;
+  return f32::make_plan(units, a.hidden, a.batch, optin, fp) ? 2 : 0;
 }
 
 template <typename T>
 int run(BwdArgs a, cudaStream_t stream) {
   const int sms = lstm::multiprocessors();
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int optin = 0;
+  if (const int err = lstm::optin_smem(optin)) return err;
   ring::Plan rp;
-  const int design = choose<T>(a, sms, optin, rp);
+  f32::Plan fp;
+  const int design = choose<T>(a, sms, optin, rp, fp);
   if (design < 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int units = lstm::units_per_block(a.hidden, sms);
   const int blocks = (a.hidden + units - 1) / units;
   if (design == 1) return ring::launch(a, rp, blocks, stream);
+  if (design == 2) return f32::launch(a, fp, blocks, stream);
   const lstm::Plan p = lstm::make_plan(sizeof(T), units, units, 4 * a.hidden, a.batch);
   constexpr int V = 16 / sizeof(T);
   a.vec = (4 * a.hidden) % V == 0 && reinterpret_cast<uintptr_t>(a.dgates) % 16 == 0;
@@ -599,28 +730,35 @@ extern "C" int lstm_bwd(int is_bf16, const void* gates, const void* cseq, const 
   return is_bf16 ? run<__nv_bfloat16>(a, stream) : run<float>(a, stream);
 }
 
-// The design lstm_bwd takes on this card for these shapes, for the tests:
-// out[0] = 1 (the ring), 0 (the first design) or -1 (refused); with the
-// ring, out[1..] = units, nt, kc, kr, pitch, stages, wm, wk, mw, nb, chunks,
-// rpw, region, ring_offset, ppt, smem_bytes. Returns a cudaError_t.
+// The design lstm_bwd takes on this card for these shapes, for the tests
+// (`aligned`: dgates and w_hh at 16-byte addresses, else at the element's
+// size): out[0] = 2 (the split-f32 design), 1 (the bf16 ring), 0 (the first
+// design) or -1 (refused); then its plan's fields, in the order of f32::Plan
+// (units, nt, cols, k, kr, stages, wm, wk, mw, nb, chunks, rpw, pitch,
+// slab_bytes, region, ring_offset, ppt, smem_bytes) or of ring::Plan (units,
+// nt, kc, kr, pitch, stages, wm, wk, mw, nb, chunks, rpw, region,
+// ring_offset, ppt, smem_bytes); zero past them. Returns a cudaError_t.
 extern "C" int lstm_bwd_plan(int is_bf16, int hidden, int batch, int aligned, int* out) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int optin = 0;
+  if (const int err = lstm::optin_smem(optin)) return err;
   // only the alignment of these two pointers is read
-  const void* ptr = reinterpret_cast<const void*>(static_cast<uintptr_t>(aligned ? 256 : 2));
+  const uintptr_t addr = aligned ? 256 : (is_bf16 ? 2 : 4);
   BwdArgs a{};
-  a.w = ptr;
-  a.dgates = const_cast<void*>(ptr);
+  a.w = reinterpret_cast<const void*>(addr);
+  a.dgates = reinterpret_cast<void*>(addr);
   a.hidden = hidden;
   a.batch = batch;
-  ring::Plan p{};
+  ring::Plan rp{};
+  f32::Plan fp{};
   const int sms = lstm::multiprocessors();
-  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, p) : choose<float>(a, sms, optin, p);
-  const int fields[] = {p.units, p.nt, p.kc, p.kr, p.pitch, p.stages, p.wm, p.wk, p.mw, p.nb,
-                        p.chunks, p.rpw, p.region, p.ring_offset, p.ppt, p.smem_bytes};
-  for (int i = 0; i < 16; ++i) out[1 + i] = out[0] == 1 ? fields[i] : 0;
+  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, rp, fp)
+                   : choose<float>(a, sms, optin, rp, fp);
+  const int f[] = {fp.units, fp.nt, fp.cols, fp.k, fp.kr, fp.stages, fp.wm, fp.wk, fp.mw,
+                   fp.nb, fp.chunks, fp.rpw, fp.pitch, fp.slab_bytes, fp.region, fp.ring_offset,
+                   fp.ppt, fp.smem_bytes};
+  const int r[] = {rp.units, rp.nt, rp.kc, rp.kr, rp.pitch, rp.stages, rp.wm, rp.wk, rp.mw,
+                   rp.nb, rp.chunks, rp.rpw, rp.region, rp.ring_offset, rp.ppt, rp.smem_bytes};
+  for (int i = 0; i < 19; ++i)
+    out[1 + i] = out[0] == 2 && i < 18 ? f[i] : out[0] == 1 && i < 16 ? r[i] : 0;
   return static_cast<int>(cudaSuccess);
 }

@@ -68,9 +68,34 @@
 // rounds' copy issue, k16 steps of products and loop take nine tenths of
 // the step, waiting for a landed slab under a tenth. Fewer, larger rounds
 // are the next lever.
-// The f32 path, and bf16 rows that are not 16-byte aligned, keep the first
-// design (lstm_fwd_kernel: gemm_chunk's register-staged chunks and an f32
-// output buffer in shared memory).
+// The f32 path with 16-byte rows whose plan fits (lstm_fwd_f32: H % 4 ==
+// 0, h0, h_seq and w_hhᵀ at 16-byte addresses, at most about 790 units,
+// at most 16 x 256 (b, u) pairs a block) takes split-f32 products on
+// tensor cores in the bf16 backward ring's structure (lstm.cuh, namespace
+// tc): the batch is the mma's M (B 192 is 12 m16 tiles; B 8 half of one),
+// the block's 4U gate columns are N, laid out unit-major (column 4u +
+// gate, so a unit's four gates are one float4 of the partials), K = H.
+// The slice is split once into big and small TF32 parts, resident in the
+// mma's fragment order (16 KB at H 256, 64 KB at H 512); each warp streams
+// its batch rows and K range of h_prev through its own cp.async ring and
+// splits its A fragments in registers; the thread that owns (b, u) sums
+// the K splits, keeps c in registers across the steps and has x_proj
+// loaded a step ahead (after the grid barrier, under the products). What
+// each latency sink of the first design became: the serial fmaf chains
+// over a runtime-length chunk (two shared loads an FMA, an 8-way bank
+// conflict a load at f32's 72-word pitch) became three mma.sync m16n8k8 a
+// k8 step from conflict-free fragments (ldmatrix at a 36-word pitch, one
+// 16-byte load of the split slice); the two block barriers a staged chunk
+// became one warp barrier a round and one block barrier a chunk. What
+// bounds it as built (tools/lstm_fwd_phase_probe.py --dtype float32, H100
+// 80GB HBM3 at 700 W; 15 us a step at B 192, H 256): the split products
+// (4 us; each h_prev value feeds only 4U columns a block, so its split is a
+// large share of them), the copies of h_prev, which every block reads
+// whole from L2 each step (196,608 bytes; 3 us), the grid barrier (3 us)
+// and the owners' gate math (2 us).
+// bf16 rows that are not 16-byte aligned, and f32 shapes that no split-f32
+// plan takes, keep the first design (lstm_fwd_kernel: gemm_chunk's
+// register-staged chunks and an f32 output buffer in shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -562,27 +587,180 @@ int launch(const FwdArgs& a, const Plan& p, int blocks, cudaStream_t stream) {
 
 }  // namespace ring
 
+// -- the split-f32 path ------------------------------------------------------
+
+namespace f32 {
+
+using lstm::THREADS;
+using lstm::tc::Plan;
+
+// The plan of the f32 design for U units a block: N = 4U columns (gate of
+// unit u at column 4u + gate), K = H; false where it does not fit.
+inline bool make_plan(int units, int hidden, int batch, int smem_limit, Plan& p) {
+  return lstm::tc::make_plan(units, (units + 1) / 2, 8, hidden, batch, smem_limit, p);
+}
+
+template <int PPT, int NT>
+__global__ void __launch_bounds__(THREADS, 1) lstm_fwd_f32(const FwdArgs a, const Plan p) {
+  constexpr int MW = lstm::tc::max_mw(NT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ws = reinterpret_cast<float*>(smem);
+  const float* xp = static_cast<const float*>(a.xp);
+  const float* wt = static_cast<const float*>(a.wt);
+  float* hseq = static_cast<float*>(a.hseq);
+  float* cseq = static_cast<float*>(a.cseq);
+  float* gates = static_cast<float*>(a.gates);
+  const int H = a.hidden, B = a.batch, U = p.units, G4 = 4 * H;
+  const int j0 = blockIdx.x * U;
+
+  // the block's slice, split once: column 4u + gate is w_hhᵀ row gate * H +
+  // j0 + u, 16 bytes (four k) a load; zero past the last unit and past H
+  {
+    const int kv = p.kr * lstm::tc::KC / 4;
+    for (int idx = threadIdx.x; idx < NT * 8 * kv; idx += THREADS) {
+      const int col = idx / kv;
+      const int k = (idx - col * kv) * 4;
+      const int u = col >> 2, gate = col & 3;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (u < U && j0 + u < H && k < H)
+        v = *reinterpret_cast<const float4*>(wt + (static_cast<long long>(gate) * H + j0 + u) * H +
+                                             k);
+      lstm::tc::put_split(ws, p, k, col >> 3, col & 7, v.x);
+      lstm::tc::put_split(ws, p, k + 1, col >> 3, col & 7, v.y);
+      lstm::tc::put_split(ws, p, k + 2, col >> 3, col & 7, v.z);
+      lstm::tc::put_split(ws, p, k + 3, col >> 3, col & 7, v.w);
+    }
+    __syncthreads();
+  }
+
+  // the (b, u) pairs this thread owns: pair tid + 256 i is (b, u) =
+  // divmod(tid + 256 i, U), kept while b < B and j0 + u < H; their c in
+  // registers across the steps, their x_proj prefetched a step ahead
+  int pb[PPT], pu[PPT];
+  float cc[PPT], xv[PPT][4];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const int pair = threadIdx.x + THREADS * i;
+    pb[i] = pair / U;
+    pu[i] = pair - pb[i] * U;
+    if (pb[i] >= B || j0 + pu[i] >= H) pb[i] = -1;
+    cc[i] = pb[i] >= 0 ? a.c[static_cast<long long>(pb[i]) * H + j0 + pu[i]] : 0.f;
+  }
+  const auto prefetch = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      if (pb[i] < 0) continue;
+      const float* x = xp + (static_cast<long long>(t) * B + pb[i]) * G4 + j0 + pu[i];
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) xv[i][gate] = x[gate * H];
+    }
+  };
+
+  prefetch(a.reverse ? a.steps - 1 : 0);
+  for (int s = 0; s < a.steps; ++s) {
+    const int t = a.reverse ? a.steps - 1 - s : s;
+    const float* hprev = s == 0 ? static_cast<const float*>(a.h0)
+                                : hseq + static_cast<long long>(a.reverse ? t + 1 : t - 1) * B * H;
+    for (int c = 0; c < p.chunks; ++c) {
+      lstm::tc::warp_chunk<NT, MW>(p, ws, smem, hprev, H, B, c);
+      __syncthreads();  // every warp's partials are in its ring
+      // the owners: the K splits' sums of their four gates in a fixed order,
+      // then the gate math
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const int bl = pb[i] - c * p.nb;
+        if (pb[i] < 0 || bl < 0 || bl >= p.nb) continue;
+        float4 lin = make_float4(xv[i][0], xv[i][1], xv[i][2], xv[i][3]);
+        for (int sp = 0; sp < p.wk; ++sp) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(lstm::tc::partial_row(smem, p, sp, bl) + 4 * pu[i]);
+          lin.x += v.x;
+          lin.y += v.y;
+          lin.z += v.z;
+          lin.w += v.w;
+        }
+        const float ig = lstm::sigmoid(lin.x);
+        const float fg = lstm::sigmoid(lin.y);
+        const float gg = tanhf(lin.z);
+        const float og = lstm::sigmoid(lin.w);
+        const float cn = fg * cc[i] + ig * gg;
+        cc[i] = cn;
+        const long long row = static_cast<long long>(t) * B + pb[i];
+        const int j = j0 + pu[i];
+        hseq[row * H + j] = og * tanhf(cn);
+        cseq[row * H + j] = cn;
+        float* gt = gates + row * G4 + j;
+        gt[0] = ig;
+        gt[H] = fg;
+        gt[2 * H] = gg;
+        gt[3 * H] = og;
+      }
+      if (c + 1 < p.chunks) __syncthreads();  // the next chunk's copies overwrite the partials
+    }
+    if (s + 1 < a.steps) {
+      lstm::grid_sync(a.bar, gridDim.x);  // h_seq[t] of every unit is written
+      prefetch(a.reverse ? t - 1 : t + 1);  // lands under the products
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PPT; ++i)
+    if (pb[i] >= 0) a.c[static_cast<long long>(pb[i]) * H + j0 + pu[i]] = cc[i];
+}
+
+template <int PPT>
+int launch_nt(const FwdArgs& a, const Plan& p, int blocks, cudaStream_t stream) {
+  switch (p.nt) {
+    case 1: return lstm::launch(lstm_fwd_f32<PPT, 1>, a, p, blocks, stream);
+    case 2: return lstm::launch(lstm_fwd_f32<PPT, 2>, a, p, blocks, stream);
+    case 3: return lstm::launch(lstm_fwd_f32<PPT, 3>, a, p, blocks, stream);
+    default: return lstm::launch(lstm_fwd_f32<PPT, 4>, a, p, blocks, stream);
+  }
+}
+
+inline int launch(const FwdArgs& a, const Plan& p, int blocks, cudaStream_t stream) {
+  return p.ppt == 1   ? launch_nt<1>(a, p, blocks, stream)
+         : p.ppt == 4 ? launch_nt<4>(a, p, blocks, stream)
+                      : launch_nt<16>(a, p, blocks, stream);
+}
+
+}  // namespace f32
+
+// Which design run() takes for these shapes and addresses (2: the split-f32
+// design, 1: the bf16 ring, 0: the first design; -1: refused) and its plan.
+template <typename T>
+int choose(const FwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp) {
+  const int units = sms > 0 ? lstm::units_per_block(a.hidden, sms) : 0;
+  if (units == 0) return -1;
+  constexpr int V = 16 / sizeof(T);
+  // 16-byte rows of h_prev and of the slice
+  const bool rows16 = a.hidden % V == 0 && reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.hseq) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.wt) % 16 == 0;
+  if (sizeof(T) == 2) {
+    if (!rows16) return 0;
+    return ring::make_plan(units, a.hidden, a.batch, optin, rp) ? 1 : -1;
+  }
+  return rows16 && f32::make_plan(units, a.hidden, a.batch, optin, fp) ? 2 : 0;
+}
+
 template <typename T>
 int run(FwdArgs a, cudaStream_t stream) {
   const int sms = lstm::multiprocessors();
-  const int units = sms > 0 ? lstm::units_per_block(a.hidden, sms) : 0;
-  if (units == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  int optin = 0;
+  if (const int err = lstm::optin_smem(optin)) return err;
+  ring::Plan rp;
+  f32::Plan fp;
+  const int design = choose<T>(a, sms, optin, rp, fp);
+  if (design < 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int units = lstm::units_per_block(a.hidden, sms);
+  const int blocks = (a.hidden + units - 1) / units;
+  if (design == 1)
+    return rp.mt == 4 ? ring::launch<4, ring::max_ntw(4)>(a, rp, blocks, stream)
+                      : ring::launch<2, ring::max_ntw(2)>(a, rp, blocks, stream);
+  if (design == 2) return f32::launch(a, fp, blocks, stream);
   constexpr int V = 16 / sizeof(T);
   a.vec = a.hidden % V == 0 && reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(a.hseq) % 16 == 0;
-  const int blocks = (a.hidden + units - 1) / units;
-  if (sizeof(T) == 2 && a.vec && reinterpret_cast<uintptr_t>(a.wt) % 16 == 0) {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ring::Plan p;
-    if (!ring::make_plan(units, a.hidden, a.batch, optin, p))
-      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    return p.mt == 4 ? ring::launch<4, ring::max_ntw(4)>(a, p, blocks, stream)
-                     : ring::launch<2, ring::max_ntw(2)>(a, p, blocks, stream);
-  }
   const lstm::Plan p = lstm::make_plan(sizeof(T), units, 4 * units, a.hidden, a.batch);
   return lstm::launch(lstm_fwd_kernel<T>, a, p, blocks, stream);
 }
@@ -597,4 +775,33 @@ extern "C" int lstm_fwd(int is_bf16, const void* xp, const void* wt, const void*
   if (steps <= 0 || batch <= 0 || hidden <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const FwdArgs a{xp, wt, h0, c, hseq, cseq, gates, bar, steps, batch, hidden, reverse, 0};
   return is_bf16 ? run<__nv_bfloat16>(a, stream) : run<float>(a, stream);
+}
+
+// The design lstm_fwd takes on this card for these shapes, for the tests
+// (`aligned`: h0, h_seq and w_hhᵀ at 16-byte addresses, else at the
+// element's size): out[0] = 2 (the split-f32 design), 1 (the bf16 ring), 0
+// (the first design) or -1 (refused); with the split-f32 design, out[1..]
+// = its plan (units, nt, cols, k, kr, stages, wm, wk, mw, nb, chunks, rpw,
+// pitch, slab_bytes, region, ring_offset, ppt, smem_bytes), else zeros.
+// Returns a cudaError_t.
+extern "C" int lstm_fwd_plan(int is_bf16, int hidden, int batch, int aligned, int* out) {
+  int optin = 0;
+  if (const int err = lstm::optin_smem(optin)) return err;
+  // only the alignment of these pointers is read
+  const uintptr_t addr = aligned ? 256 : (is_bf16 ? 2 : 4);
+  FwdArgs a{};
+  a.wt = a.h0 = reinterpret_cast<const void*>(addr);
+  a.hseq = reinterpret_cast<void*>(addr);
+  a.hidden = hidden;
+  a.batch = batch;
+  ring::Plan rp{};
+  f32::Plan fp{};
+  const int sms = lstm::multiprocessors();
+  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, rp, fp)
+                   : choose<float>(a, sms, optin, rp, fp);
+  const int f[] = {fp.units, fp.nt, fp.cols, fp.k, fp.kr, fp.stages, fp.wm, fp.wk, fp.mw,
+                   fp.nb, fp.chunks, fp.rpw, fp.pitch, fp.slab_bytes, fp.region, fp.ring_offset,
+                   fp.ppt, fp.smem_bytes};
+  for (int i = 0; i < 19; ++i) out[1 + i] = out[0] == 2 && i < 18 ? f[i] : 0;
+  return static_cast<int>(cudaSuccess);
 }

@@ -2,11 +2,13 @@
 // dw_gemm.cuh (the fused blocks' weight gradients), block_mma.cuh (the block
 // kernels and their input gradients), attention.cuh (the attention kernels),
 // the LSTM kernels' rings (lstm_fwd.cu, lstm_bwd.cu) and the split-f32 STFT
-// (stft.cu).
+// (stft.cu) and LSTM kernels (lstm.cuh).
 //
-// - mma.sync m16n8k16 (bf16 in, f32 accumulate); ldmatrix fragments, also
-//   transposed (.trans: the operand stored with k along its rows), the
-//   transposed stmatrix and the in-register transpose movmatrix;
+// - mma.sync m16n8k16 (bf16 in, f32 accumulate) and m16n8k8 (TF32 in, f32
+//   accumulate), with cvt.rna.tf32, which rounds f32 to TF32 for the
+//   split-f32 products; ldmatrix fragments, also transposed (.trans: the
+//   operand stored with k along its rows), the transposed stmatrix and the
+//   in-register transpose movmatrix;
 // - 16-byte global loads, predicated without a branch, of the aligned
 //   chunks around a row of frames, and the register shift (realign) that
 //   takes eight frames starting at any of the eight 2-byte offsets of a
@@ -71,6 +73,32 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The TF32 value nearest v (10 explicit mantissa bits, ties away from zero),
+// as the bits of an f32. One TF32 product keeps too few bits for an f32
+// tolerance; a split-f32 product takes v's big part, to_tf32(v), and its
+// small part, to_tf32(v - big), and sums small x big + big x small + big x
+// big in f32 (3xTF32: about f32's accuracy).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// The same split on the integer and FMA pipes: big is v rounded to nearest
+// TF32, ties away from zero (its bits plus half a TF32 ulp, masked: cvt.rna's
+// result for a finite v), small is v - big (exact) truncated to TF32 (the
+// mantissa bits an mma.sync reads).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(v - __uint_as_float(big)) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

@@ -15,11 +15,14 @@ Counterpart of speech_enhancement_tpu/ops/pallas/lstm.py (``fused_lstm``,
 ``lstm_fwd`` launches ``csrc/lstm_fwd.cu`` for CUDA tensors (one launch for
 all T steps, counted in ``lstm_fwd.launches``) and runs
 :func:`fused_lstm_plain` for CPU tensors; ``lstm_bwd`` does the same with
-``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Each kernel has two
-designs, which the C code picks from the shapes: a ring path for bf16 with
-16-byte rows and the first design for the rest; :func:`bwd_ring_plan`
-mirrors the backward's choice and plan, and :func:`lstm_bwd_design` asks
-the built library for them. Any other device raises,
+``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Each kernel has three
+designs, which the C code picks from the shapes by plan: a ring path for
+bf16 with 16-byte rows, a split-f32 path on tensor cores for f32 with
+16-byte rows whose plan fits (``csrc/lstm.cuh``, namespace ``tc``), and the
+first design for the rest; :func:`bwd_ring_plan` and :func:`f32_plan`
+mirror the C plans and :func:`f32_design` the f32 choice, and
+:func:`lstm_fwd_design` / :func:`lstm_bwd_design` ask the built library
+for them. Any other device raises,
 and there is no fallback from a kernel to its plain version: a width whose
 weight slice does not fit the cooperative grid raises. The kernel sources
 say what bounds them and how the weights stay resident.
@@ -101,8 +104,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "lstm_fwd": ("lstm_fwd", [_I] + [_P] * 8 + [_I] * 4 + [_P]),
     "lstm_bwd": ("lstm_bwd", [_I] + [_P] * 9 + [_I] * 4 + [_P]),
+    "lstm_fwd_plan": ("lstm_fwd", [_I] * 4 + [_P]),
     "lstm_bwd_plan": ("lstm_bwd", [_I] * 4 + [_P]),
 }
+_PLAN_INTS = 20  # the plan entries' out[]
+_DESIGNS = {2: "f32", 1: "ring", 0: "first"}
 
 # csrc/lstm_bwd.cu, namespace ring
 _RING_KCS, _RING_MIN_STAGES, _RING_MAX_STAGES, _RING_MAX_MW = (64, 32, 16), 3, 8, 4
@@ -159,21 +165,111 @@ def bwd_ring_plan(units: int, hidden: int, batch: int, smem_limit: int):
     return best
 
 
-def lstm_bwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool = True):
-    """("ring", plan) or ("first", None): the design ``csrc/lstm_bwd.cu``
-    takes on the current card for these shapes (``aligned``: dgates and
-    w_hh at 16-byte addresses), as its ``lstm_bwd_plan`` entry reports;
-    raises for a width whose grid does not fit. Needs a card."""
-    out = (ctypes.c_int * 17)()
-    code = _entry("lstm_bwd_plan")(int(dtype == torch.bfloat16), hidden, batch, int(aligned),
-                                   ctypes.addressof(out))
-    _build.check(_build.library("lstm_bwd"), code, "lstm_bwd_plan")
+# csrc/lstm.cuh, namespace tc (the split-f32 designs)
+_TC_KC, _TC_SP, _TC_MIN_STAGES, _TC_MAX_STAGES = 32, 36, 3, 8
+_TC_ROUND_K, _TC_CHUNK_K = 8, 64
+_TC_FIELDS = ("units", "nt", "cols", "k", "kr", "stages", "wm", "wk", "mw", "nb", "chunks",
+              "rpw", "pitch", "slab_bytes", "region", "ring_offset", "ppt", "smem_bytes")
+
+
+def f32_plan(units: int, nt: int, cols: int, k: int, batch: int, smem_limit: int):
+    """``tc::make_plan`` of ``csrc/lstm.cuh``, line for line: the split-f32
+    plan of ``units`` hidden units a block with ``nt`` n8 column tiles of
+    which the slice stores ``cols`` columns, a reduction of ``k``, or None
+    where the kernel takes the first design. Change both together."""
+    if units <= 0 or cols > 8 or not 1 <= nt <= 4:
+        return None
+    pairs = batch * units
+    ppt = 1 if pairs <= 256 else 4 if pairs <= 4 * 256 else 16 if pairs <= 16 * 256 else 0
+    if ppt == 0:
+        return None
+    kr = -(-k // _TC_KC)
+    ring_offset = kr * (_TC_KC // 8) * nt * cols * 64
+    if ring_offset >= smem_limit:
+        return None
+    region_max = (smem_limit - ring_offset) // 8 // 16 * 16
+    pitch = 16 * (nt // 2) + 8
+    best, best_cost, best_flight = None, 0, 0
+    wm = 1
+    while wm <= 8:
+        wk = 8 // wm
+        for mw in range(1, (4 if nt <= 2 else 2) + 1):
+            slab = mw * 16 * _TC_SP * 4
+            part = mw * 16 * pitch * 4
+            stages = min(region_max // slab, _TC_MAX_STAGES)
+            if stages < _TC_MIN_STAGES:
+                continue
+            region = max(stages * slab, part)
+            if region > region_max:
+                continue
+            nb = wm * mw * 16
+            chunks = -(-batch // nb)
+            rpw = -(-kr // wk)
+            cost = chunks * (mw * rpw * (_TC_KC + _TC_ROUND_K) + _TC_CHUNK_K)
+            flight = (stages - 1) * slab
+            if best_cost > 0 and (cost > best_cost
+                                  or (cost == best_cost and flight <= best_flight)):
+                continue
+            best_cost, best_flight = cost, flight
+            best = {"units": units, "nt": nt, "cols": cols, "k": k, "kr": kr, "stages": stages,
+                    "wm": wm, "wk": wk, "mw": mw, "nb": nb, "chunks": chunks, "rpw": rpw,
+                    "pitch": pitch, "slab_bytes": slab, "region": region,
+                    "ring_offset": ring_offset, "ppt": ppt,
+                    "smem_bytes": ring_offset + 8 * region}
+        wm *= 2
+    return best
+
+
+def f32_design(kernel: str, hidden: int, batch: int, sms: int, smem_limit: int,
+               aligned: bool = True):
+    """The f32 choice of ``csrc/lstm_fwd.cu`` (``kernel`` "fwd") or
+    ``lstm_bwd.cu`` ("bwd") on a card of ``sms`` SMs and ``smem_limit``
+    bytes a block, as their ``choose`` makes it: ("f32", plan), ("first",
+    None), or None where the grid does not fit (more than 16 units a block).
+    The forward's split-f32 design wants 16-byte rows of h_prev (H % 4 == 0)
+    and, with ``aligned``, h0, h_seq and w_hhᵀ at 16-byte addresses; the
+    backward's wants dgates and w_hh there (its rows of 4H floats are)."""
+    units = -(-hidden // sms)
+    if units > 16:
+        return None
+    if kernel == "fwd":
+        plan = (f32_plan(units, (units + 1) // 2, 8, hidden, batch, smem_limit)
+                if aligned and hidden % 4 == 0 else None)
+    else:
+        plan = f32_plan(units, 1, units, 4 * hidden, batch, smem_limit) if aligned else None
+    return ("f32", plan) if plan is not None else ("first", None)
+
+
+def _design(name: str, dtype: torch.dtype, hidden: int, batch: int, aligned: bool):
+    out = (ctypes.c_int * _PLAN_INTS)()
+    code = _entry(f"{name}_plan")(int(dtype == torch.bfloat16), hidden, batch, int(aligned),
+                                  ctypes.addressof(out))
+    _build.check(_build.library(name), code, f"{name}_plan")
     if out[0] < 0:
-        raise RuntimeError(f"lstm_bwd: H {hidden} needs more than 16 units a block (cooperative "
+        raise RuntimeError(f"{name}: H {hidden} needs more than 16 units a block (cooperative "
                            "grid does not fit)")
-    if out[0] == 0:
-        return "first", None
-    return "ring", dict(zip(_RING_FIELDS, out[1:]))
+    design = _DESIGNS[out[0]]
+    if design == "first" or (design == "ring" and name == "lstm_fwd"):
+        return design, None
+    return design, dict(zip(_TC_FIELDS if design == "f32" else _RING_FIELDS, out[1:]))
+
+
+def lstm_fwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool = True):
+    """("f32", plan), ("ring", None) or ("first", None): the design
+    ``csrc/lstm_fwd.cu`` takes on the current card for these shapes
+    (``aligned``: h0, h_seq and w_hhᵀ at 16-byte addresses), as its
+    ``lstm_fwd_plan`` entry reports; raises where the grid does not fit.
+    Needs a card."""
+    return _design("lstm_fwd", dtype, hidden, batch, aligned)
+
+
+def lstm_bwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool = True):
+    """("f32", plan), ("ring", plan) or ("first", None): the design
+    ``csrc/lstm_bwd.cu`` takes on the current card for these shapes
+    (``aligned``: dgates and w_hh at 16-byte addresses), as its
+    ``lstm_bwd_plan`` entry reports; raises for a width whose grid does not
+    fit. Needs a card."""
+    return _design("lstm_bwd", dtype, hidden, batch, aligned)
 
 
 @functools.cache

@@ -724,12 +724,42 @@ def test_lstm_bwd_ring_matches_plain(card, batch, hidden, reverse):
     assert design == "ring" and plan == {k: want[k] for k in plan}
 
 
-# the first design: f32, and bf16 rows that are not 16 bytes (4H % 8 != 0)
-@pytest.mark.parametrize("dtype,shape", [(torch.float32, (5, 16, 256)),
+# the first design: f32 wider than the split-f32 plans reach (H 1000: U 8),
+# and bf16 rows that are not 16 bytes (4H % 8 != 0)
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (3, 5, 1000)),
                                          (torch.bfloat16, (5, 16, 133)),
                                          (torch.bfloat16, (3, 5, 1795))])
 def test_lstm_bwd_first_design_stays(card, dtype, shape):
     assert _check_lstm_bwd(card, shape, True, dtype) == ("first", None)
+
+
+# f32 at the served widths, where both kernels take the split-f32 design
+# (csrc/lstm.cuh, namespace tc): mel-rnn's and Demucs's B 192 at H 256 and
+# 512, Demucs's train batch B 8 (half an m16 tile), a ragged B 70 (warps
+# along the batch and along K), and H 258, not a multiple of 4: the
+# forward keeps the first design there, the backward (rows of 4H floats)
+# does not
+LSTM_F32_SHAPES = [(4, 192, 256), (4, 192, 512), (4, 8, 256), (4, 8, 512), (4, 70, 256),
+                   (4, 16, 258)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_F32_SHAPES)
+def test_lstm_f32_kernels_take_their_plans(card, shape, reverse):
+    """Both kernels against their plain versions within LSTM_TOL[float32],
+    each taking the design its mirrored plan says (kernels/lstm.py:
+    f32_design, which tests/test_torch_lstm_f32_ring.py walks)."""
+    from speech_enhancement_torch.kernels.lstm import f32_design, lstm_fwd_design
+    _, batch, hidden = shape
+    sms, optin = _card_plan_args(card)
+    _check_lstm_fwd(card, shape, reverse, torch.float32)
+    fwd = lstm_fwd_design(torch.float32, hidden, batch)
+    assert fwd == f32_design("fwd", hidden, batch, sms, optin)
+    assert fwd[0] == ("f32" if hidden % 4 == 0 else "first")
+    bwd = _check_lstm_bwd(card, shape, reverse, torch.float32)
+    assert bwd == f32_design("bwd", hidden, batch, sms, optin) and bwd[0] == "f32"
+    # unaligned pointers take the first design
+    assert lstm_fwd_design(torch.float32, hidden, batch, aligned=False) == ("first", None)
 
 
 def test_fused_lstm_gradients_on_card_match_cpu(card):
@@ -917,14 +947,14 @@ def test_small_sepformer_on_card_matches_cpu(card):
 # -- mel-rnn, rnn-stft-mask training, Sepformer's options, DCCRN's real LSTM --
 
 # (T, B, H, dtype) of this slice's LSTM paths: mel-rnn (f32 H 256 B 16: the
-# first designs) and rnn-stft-mask training (bf16 H 896 B 16: the rings)
+# split-f32 designs) and rnn-stft-mask training (bf16 H 896 B 16: the rings)
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape,dtype", [((6, 16, 256), torch.float32),
                                          ((6, 16, 896), torch.bfloat16)])
 def test_lstm_kernels_at_the_recurrent_slice_shapes(card, shape, dtype, reverse):
     _check_lstm_fwd(card, shape, reverse, dtype)
     design, _ = _check_lstm_bwd(card, shape, reverse, dtype)
-    assert design == ("ring" if dtype == torch.bfloat16 else "first")
+    assert design == ("ring" if dtype == torch.bfloat16 else "f32")
 
 
 SMALL_MEL = {"name": "mel-rnn", "n_fft": 128, "hop_length": 32, "win_length": 128,
@@ -1072,10 +1102,11 @@ def test_zoo_demucs_remat_on_card_relaunches_the_blstm_forward(card):
     torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-7)
 
 
-# (T, B, H): Demucs's DConv BLSTM layers at a short T, f32 (its path)
+# (T, B, H): Demucs's DConv BLSTM layers at a short T, f32 (its path: the
+# split-f32 designs)
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape", [(6, 8, 256), (6, 8, 512), (6, 192, 512)])
 def test_zoo_lstm_kernels_at_the_demucs_shapes(card, shape, reverse):
     _check_lstm_fwd(card, shape, reverse, torch.float32)
     design, _ = _check_lstm_bwd(card, shape, reverse, torch.float32)
-    assert design == "first"
+    assert design == "f32"
