@@ -59,12 +59,23 @@ with RNN intra / inter blocks and with remat against remat off
 trained on both execution paths and a small f32 one on the card against
 the CPU (``dccrn_real_lstm_phase``); the LSTM kernel phase holds both
 kernels at those paths' shapes too (mel-rnn's f32 H 256 and rnn-stft-mask
-training's bf16 H 896 at B 16, both directions). Last, the ``cli`` phase
+training's bf16 H 896 at B 16, both directions). Then streaming serving
+(``stream_phase``, serve/streaming.py): the STFT and LSTM forward kernels
+at the stream's shapes against their plain versions, DCCRN and CRN at
+full width (bf16; CRN with ``fused_rnn``) streaming 10 s requests in
+16-frame chunks at B 1 and B 64, each held to its offline forward over
+the interior (the small f32 models within 2e-4 of the peak), with each
+step's ms, the RTF, the device-busy share of a step, the peak memory and
+the launches a chunk (DCCRN: STFT and mask E once; CRN: LSTM forward
+twice); and the Clarity hearing-aid chain (``ha_phase``, ha/):
+``ClarityScorer`` on the card against the CPU for two 4 s utterances,
+timed by its card chain and its host ear model. Last, the ``cli`` phase
 runs the system's own entry point, ``speech_enhancement_torch.main.main``,
 on synthetic data: DCCRN at full width trains two epochs, checkpoints, is
 resumed and scores a test set (SI-SDR, STOI, PESQ), mel-rnn trains two
-epochs and tests resumed, Sepformer trains and tests on Clarity scenes,
-and ``python -m speech_enhancement_torch --mode validation`` runs in a
+epochs and tests resumed, Sepformer trains on Clarity scenes and
+``--mode test`` writes the hearing-aid columns (HASPI / HASQI), and
+``python -m speech_enhancement_torch --mode validation`` runs in a
 subprocess (``cli_phase``). Each phase's seconds and the total are
 logged. It imports nothing of JAX.
 
@@ -82,6 +93,8 @@ last line is printed; so does a host without CUDA.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import functools
 import json
 import os
@@ -2385,6 +2398,300 @@ def zoo_phase(dev) -> dict:
 
 # -- the system's own entry point: data layer, Solver and CLI ----------------
 
+# -- streaming serving and the hearing-aid chain --------------------------------
+
+STREAM_BATCHES = (1, 64)  # one stream, and 64 parallel streams a step
+# a small f32 stream on the card vs the same model's offline forward on the
+# card, over the interior: the CPU tests' bound (tests/test_torch_streaming_*)
+STREAM_F32_FRAC = 2e-4
+SMALL_STREAM_DCCRN = {"name": "dccrn", "kernel_num": [16, 32, 64], "rnn_units": 64,
+                      "dtype": "float32"}
+# the amplified signals (tanh-clipped, |x| <= 1) card vs CPU, absolute, and
+# the better-ear scores, relative: tests/test_torch_ha.py's bounds. The
+# inputs put every score inside HA_SCORE_RANGE, so the relative bound can fail
+HA_AMP_ATOL, HA_SCORE_RTOL, HA_SCORE_RANGE = 1e-5, 1e-4, (0.02, 0.98)
+HA_SECONDS, HA_SCENES = 4.0, 2
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 allowed for convolutions (cuDNN's default) and matmuls inside,
+    the flags as they were after."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def timed_step(streamer):
+    """A stand-in for ``streamer.step`` that records each call's ms on the
+    host clock from a synchronize to a synchronize (``.ms``) and the last
+    state it returned (``.state``)."""
+    def step(state, chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = streamer.step(state, chunk)
+        torch.cuda.synchronize()
+        step.ms.append(1e3 * (time.perf_counter() - t0))
+        step.state = state
+        return state, out
+    step.ms, step.state = [], None
+    return step
+
+
+def stream_offline(family: str, model, cfg, wav: torch.Tensor) -> torch.Tensor:
+    """The same model's offline forward on the card: [B, T] -> [B, T]."""
+    with torch.inference_mode():
+        if family == "dccrn":
+            return model(wav)
+        spec = model(stft_custom(wav[:, None], cfg.model))
+        return istft_custom(spec, wav.shape[-1], cfg.model)[:, 0]
+
+
+def stream_family(tag: str, dev, family: str, cfg, model, batches, f32: bool) -> dict:
+    """Stream 10 s requests at each batch of ``batches`` through the port's
+    streamer, check the launches (DCCRN: the STFT and mask-E kernels once a
+    chunk; CRN with fused_rnn: the LSTM forward twice a chunk), hold the
+    stream against the offline forward over the interior (all but the
+    final ``latency`` samples for DCCRN, the final ``win`` for CRN), and
+    time it: each step's ms, the device-busy share of one steady step, the
+    peak memory."""
+    from speech_enhancement_torch.serve import CRNStreamer, DCCRNStreamer
+
+    if family == "dccrn":
+        streamer = DCCRNStreamer(model)
+        per_chunk = {"stft": 1, "mask_e": 1}
+        cut = streamer.latency
+    else:
+        streamer = CRNStreamer(model)
+        per_chunk = {"lstm_fwd": 2} if model.fused_rnn else {}
+        cut = streamer.win
+    n = int(SECONDS * 16000)
+    chunk_audio_ms = 1e3 * streamer.chunk_samples / 16000
+    rng = np.random.default_rng(SEED + 11)
+    results = {}
+    for batch in batches:
+        wav = torch.from_numpy(np.concatenate([utterance(rng, n)[0] for _ in range(batch)])
+                               ).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        step = timed_step(streamer)
+        got = streamer.enhance(wav, step=step).cpu().numpy()
+        ms, state = step.ms, step.state
+        launches = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        want = dict.fromkeys(COUNTED, 0)
+        want.update({k: v * len(ms) for k, v in per_chunk.items()})
+        if launches != want:
+            fail(f"{tag} B {batch}: launches {launches}, want {want} ({len(ms)} chunks)")
+        ref = stream_offline(family, model, cfg, wav).float().cpu().numpy()
+        interior = n - cut
+        if f32:
+            err = float(np.abs(got[:, :interior] - ref[:, :interior]).max())
+            peak = float(np.abs(ref).max())
+            agreement = {"max_err": err, "peak": peak}
+            if not np.isfinite(got).all() or err > STREAM_F32_FRAC * peak:
+                fail(f"{tag} B {batch}: stream vs offline beyond {STREAM_F32_FRAC} of the "
+                     f"peak: {agreement}")
+        else:
+            agreement = agree([got[:, :interior]], [ref[:, :interior]],
+                              f"{tag} B {batch}: stream vs offline")[0]
+        tail_err = float(np.abs(got[:, interior:] - ref[:, interior:]).max())
+        chunk = torch.zeros((batch, streamer.chunk_samples), device=dev)
+        busy_ms, top = device_busy(lambda: streamer.step(state, chunk))
+        median = statistics.median(ms[1:])
+        results[f"B{batch}"] = {
+            "chunks": len(ms), "chunk_ms": ms, "median_chunk_ms": median,
+            "rtf": median / chunk_audio_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / median if busy_ms else None, "top_kernels": top,
+            "peak_mem_gib": peak_gib, "launches": launches, "agreement": agreement,
+            "tail_max_err": tail_err}
+        share = results[f"B{batch}"]["device_busy_share"]
+        log(f"{tag} B {batch}: {len(ms)} chunks of {streamer.chunk_samples} samples "
+            f"({chunk_audio_ms:g} ms) over {SECONDS:g} s; step ms median {median:.3f} (first "
+            f"{ms[0]:.1f}, min {min(ms):.3f}, max {max(ms[1:]):.3f}), RTF "
+            f"{median / chunk_audio_ms:.4f}; one steady step device busy {busy_ms:.3f} ms "
+            f"({'not measured' if share is None else f'{share:.3f}'}); peak {peak_gib:.3f} GiB; "
+            f"launches {({k: v for k, v in launches.items() if v})}; stream vs offline interior "
+            f"{agreement}, final {cut} samples max err {tail_err:.4g}; top kernels "
+            + "; ".join(f"{t['kernel']} {t['ms']:.3f} ms x{t['count']}" for t in top[:4]))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{tag}: {n_params} params, algorithmic latency {streamer.latency} samples = "
+        f"{1e3 * streamer.latency / 16000:g} ms at 16 kHz")
+    return {"params": n_params, "latency_samples": streamer.latency,
+            "chunk_samples": streamer.chunk_samples, "batches": results}
+
+
+def stream_kernel_shapes(dev) -> dict:
+    """Rows 1 and 9 at the stream's shapes against their plain versions,
+    timed beside them: the DCCRN chunk STFT over [300 tail | 1600] samples,
+    CRN's LSTM forward at T 16 with a carried, non-zero h0 / c0 (bf16,
+    H 1792), at B 1 and B 64; the design each takes."""
+    basis = torch.from_numpy(_stft_bases(400, 512)[0]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for batch in STREAM_BATCHES:
+        x = torch.randn((batch, 1900), generator=gen, device=dev)
+        err = float((stft_kernel(x, basis, 100, 400) - stft_plain(x, basis, 100, 400)).abs().max())
+        if err > STFT_ATOL:
+            fail(f"stream shapes: STFT kernel at B {batch} x 1900 off by {err}")
+        dim = basis.shape[1]
+        flops = 2.0 * batch * 16 * dim * 400
+        nbytes = 4.0 * (x.numel() + basis.numel() + batch * 16 * dim)
+        design = stft_design(batch, 1900, 100, 400, dim)[0]
+        by_ops = (3 * flops / TF32_FLOPS_PER_S if design == "tc" else flops / F32_FLOPS_PER_S)
+        out[f"stft B{batch}"] = {
+            "design": design, "max_abs_err": err,
+            "ms": cuda_ms(lambda: stft_kernel(x, basis, 100, 400)),
+            "plain_ms": cuda_ms(lambda: stft_plain(x, basis, 100, 400)),
+            "bound_ms": 1e3 * max(by_ops, nbytes / HBM_BYTES_PER_S),
+            "bound_by": "operations" if by_ops > nbytes / HBM_BYTES_PER_S else "bytes"}
+        x_proj, w_hh, h0, c0 = lstm_inputs(gen, 16, batch, 1792, torch.bfloat16, dev, state=True)
+        worst, mean = lstm_close(lstm_k.lstm_fwd(x_proj, w_hh, h0, c0),
+                                 lstm_k.fused_lstm_plain(x_proj, w_hh, h0, c0), bf16=True)
+        if not np.isfinite(mean):
+            fail(f"stream shapes: LSTM forward at T 16, B {batch}, H 1792 beyond its bounds")
+        flops, nbytes = lstm_work(16, batch, 1792)
+        out[f"lstm_fwd B{batch}"] = {
+            "design": lstm_k.lstm_fwd_design(torch.bfloat16, 1792, batch)[0],
+            "max_abs_err": worst,
+            "ms": cuda_ms(lambda: lstm_k.lstm_fwd(x_proj, w_hh, h0, c0)),
+            "plain_ms": cuda_ms(lambda: lstm_k.fused_lstm_plain(x_proj, w_hh, h0, c0)),
+            "bound_ms": 1e3 * max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S),
+            "bound_by": ("operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+                         else "bytes")}
+    for name, row in out.items():
+        log(f"stream shapes: {name}: design {row['design']}, max abs err vs plain "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return out
+
+
+def stream_phase(dev) -> dict:
+    """Streaming serving (serve/streaming.py) on the card: rows 1 and 9 at
+    the stream's shapes; DCCRN (configs/dccrn_vbd.yaml) and CRN
+    (configs/crn_vbd.yaml, fused_rnn) at full width with seeded weights in
+    bf16, each streaming a 10 s request at B 1 and at B 64 in 16-frame
+    chunks, held to their offline forwards within the serving bounds
+    (mean <= 2%, worst <= 20% of the RMS); and a small f32 DCCRN and CRN
+    within STREAM_F32_FRAC of the offline peak."""
+    out = {"kernel_shapes": stream_kernel_shapes(dev)}
+    for family, path in (("dccrn", CONFIG), ("crn", CRN_CONFIG)):
+        cfg, model, _ = load_model(dev, path)
+        out[family] = stream_family(f"stream {family} ({os.path.basename(path)}, bf16)", dev,
+                                    family, cfg, model, STREAM_BATCHES, f32=False)
+        del model
+    for family, small in (("dccrn", SMALL_STREAM_DCCRN), ("crn", SMALL_CRN)):
+        cfg = Config({"model": small})
+        model, _ = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(SEED))
+        out[f"small_{family}"] = stream_family(f"stream small f32 {family}", dev, family, cfg,
+                                               model.eval(), (2,), f32=True)
+    return out
+
+
+def ha_phase(dev) -> dict:
+    """The Clarity hearing-aid chain (ha/): a synthetic HA config
+    (``make_ha_config``: 44.1 kHz, two listeners, one a scene) and
+    ``ClarityScorer`` on the card and on the CPU for two 4 s, 16 kHz stereo
+    utterances: amplified signals within HA_AMP_ATOL, the four better-ear
+    scores within HA_SCORE_RTOL of the CPU's and inside HA_SCORE_RANGE. ``main``
+    runs the phase under ``tf32_allowed()``, as a user's process runs the
+    chain. The first utterance is scored on the card
+    in this thread for the timing (the chain's seconds, ending in the copy
+    to the host, and the host ear model's); the other three scorings run in
+    threads beside it. Then the card chain alone, five times on the host
+    clock, and its parts by CUDA events."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from speech_enhancement_torch.data.synthetic import make_ha_config
+    from speech_enhancement_torch.ha.scoring import ClarityScorer
+
+    tmp = tempfile.mkdtemp(prefix="se_torch_ha_")
+    try:
+        scenes = [f"S{i:05d}" for i in range(1, HA_SCENES + 1)]
+        ha_yaml = make_ha_config(tmp, scenes=scenes, n_listeners=2, fs=44100, seed=SEED)
+        card = ClarityScorer(ha_yaml, input_sr=16000, device=dev)
+        host = ClarityScorer(ha_yaml, input_sr=16000, device="cpu")
+        rng = np.random.default_rng(SEED + 13)
+        n = int(HA_SECONDS * 16000)
+        items = []
+        for scene in scenes:
+            # at a tenth of utterance()'s level, which the NAL-R gains and
+            # the compressor leave unclipped: on the CPU the scores of these
+            # inputs lie in [0.05, 0.9]
+            clean = 0.1 * np.concatenate([utterance(rng, n)[0], utterance(rng, n)[0]])  # [2, T]
+            noise = rng.standard_normal(clean.shape).astype(np.float32)
+            items.append((clean, clean + 0.003 * noise, clean + 0.001 * noise,
+                          f"{scene}_mix_CH1"))
+        listener = card.listeners_for_scene(scenes[0])[0]
+        card._amplify(card._resample(items[0][2]), listener)  # first-call set-up
+        torch.cuda.synchronize()
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            futures = ([pool.submit(host.score, *item) for item in items]
+                       + [pool.submit(card.score, *item) for item in items[1:]])
+            timed = card.score(*items[0])
+            results = [f.result() for f in futures]
+        on_host, on_card = results[:HA_SCENES], [timed] + results[HA_SCENES:]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("haspi_enhance", "hasqi_enhance", "haspi_mixture", "hasqi_mixture")
+    amp_err = max(float(np.abs(c["amplified"] - h["amplified"]).max())
+                  for c, h in zip(on_card, on_host))
+    score_err = max(abs(c[k] - h[k]) / abs(h[k]) for c, h in zip(on_card, on_host) for k in keys)
+    low, high = HA_SCORE_RANGE
+    if amp_err > HA_AMP_ATOL or score_err > HA_SCORE_RTOL or not all(
+            low <= c[k] <= high for c in on_card for k in keys):
+        fail(f"ha: card vs CPU amplified max err {amp_err}, scores max err {score_err}; card "
+             f"{[{k: c[k] for k in keys} for c in on_card]}, CPU "
+             f"{[{k: h[k] for k in keys} for h in on_host]}")
+    clean, mixture, enhanced, name = items[0]
+
+    def chain():
+        """What ``score`` runs on the card for one utterance and listener:
+        the three resamples, both signals' chains, the copies to the host."""
+        card._resample(clean).cpu()
+        for signal in (enhanced, mixture):
+            card._amplify(card._resample(signal), listener).cpu()
+
+    chain_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain()
+        chain_ms.append(1e3 * (time.perf_counter() - t0))
+    sig = card._resample(enhanced)
+    x = card.enhancer.apply(card.enhancer.build(listener["audiogram_levels_l"],
+                                                np.asarray(listener["audiogram_cfs"], float)),
+                            sig[:1])
+    parts = {"resample": cuda_ms(lambda: card._resample(enhanced), reps=10),
+             "amplify (one listener, both ears)": cuda_ms(lambda: card._amplify(sig, listener),
+                                                          reps=10),
+             "compressor (one ear)": cuda_ms(lambda: card.compressor(x), reps=10)}
+    result = {"scores_card": [{k: c[k] for k in keys} for c in on_card],
+              "amp_max_err": amp_err, "score_max_err": score_err,
+              "card_amplify_s": timed["amplify_s"], "host_ear_model_s": timed["ear_model_s"],
+              "chain_ms": chain_ms, "chain_part_ms": parts}
+    log(f"ha: ClarityScorer card vs CPU on {HA_SCENES} utterances of {HA_SECONDS:g} s (16 kHz "
+        f"stereo -> 44.1 kHz, one listener a scene): amplified max err {amp_err:.3g}, scores "
+        f"max err {score_err:.3g}; card scores {result['scores_card']}")
+    log(f"ha: one utterance scored on the card: {timed['amplify_s'] + timed['ear_model_s']:.3f} "
+        f"s = amplification chain {1e3 * timed['amplify_s']:.2f} ms (resample, NAL-R, "
+        f"compressor of enhanced and mixture, host clock ending in the copy to the host) + "
+        f"host ear model {timed['ear_model_s']:.3f} s (HASPI and HASQI of both, three other "
+        f"scorings in threads beside it)")
+    log(f"ha: the card chain of one utterance and listener alone (three resamples, NAL-R and "
+        f"compressor of enhanced and mixture, copies to the host; host clock from a "
+        f"synchronize): median {statistics.median(chain_ms):.2f} ms of "
+        f"{[round(v, 2) for v in chain_ms]}; parts by CUDA events "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+    return result
+
+
 CLI_UTTERANCES = 184  # 4 to 10 s each: 128 train (8 steps of 16), 27 val, 29 test
 CLI_SCENES = 12       # Clarity scenes of 4 s: 8 train (2 steps of 4), 1 val, 3 test
 
@@ -2419,8 +2726,10 @@ def cli_phase(dev) -> dict:
     training epoch.
 
     Sepformer at the full width of configs/sepformer_clarity.yaml (batch 4,
-    two speakers, si-sdr with PIT) on Clarity scenes of 4 s: one epoch of 2
-    steps and a test pass of 2 scenes; both attention kernels must launch.
+    two speakers, si-sdr with PIT) on Clarity scenes of 4 s, with ``ha:``
+    set to a synthetic 44.1 kHz hearing-aid config: one epoch of 2 steps,
+    then ``--mode test`` resumed on 2 scenes, whose results.csv must hold
+    HASPI / HASQI columns in [0, 1]; both attention kernels must launch.
 
     Then ``python -m speech_enhancement_torch --mode validation`` in a
     subprocess on the DCCRN run; it must exit 0 and print its loss."""
@@ -2428,7 +2737,8 @@ def cli_phase(dev) -> dict:
     import tempfile
 
     from speech_enhancement_torch.config import save_yaml
-    from speech_enhancement_torch.data.synthetic import make_clarity, make_voicebank_demand
+    from speech_enhancement_torch.data.synthetic import (make_clarity, make_ha_config,
+                                                         make_voicebank_demand)
     from speech_enhancement_torch.data.wav_io import read_wav
     from speech_enhancement_torch.main import main as port_main
     from speech_enhancement_torch.train import metrics as metrics_lib
@@ -2583,18 +2893,33 @@ def cli_phase(dev) -> dict:
                              **{"validation.total_steps": 1, "test.total_steps": 2,
                                 "test.metrics": ["sisdr", "stoi"], "test.num_show": 0})
         sep_cfg.dset.split = [0.7, 0.1, 0.2]
-        sep = port_main(sep_cfg, mode="train", return_solver=True,
-                        run_dir=os.path.join(tmp, "sep"))
+        # the Clarity hearing-aid columns: a 44.1 kHz HA config, one listener a scene
+        sep_cfg.ha = make_ha_config(os.path.join(tmp, "ha"), n_listeners=2, fs=44100, seed=SEED,
+                                    scenes=[f"S{i:05d}" for i in range(1, CLI_SCENES + 1)])
+        sep_dir = os.path.join(tmp, "sep")
+        sep = port_main(sep_cfg, mode="train", return_solver=True, run_dir=sep_dir)
         sep_train_launches = read_launches()
         reset_launches()
-        sep_summary = sep.inference()
+        sep_cfg.solver.resume = sep_dir
+        sep_test_dir = os.path.join(tmp, "sep_test")
+        sep_tester = port_main(sep_cfg, mode="test", return_solver=True, run_dir=sep_test_dir)
         sep_test_launches = read_launches()
+        with open(os.path.join(sep_test_dir, "test_summary.json")) as handle:
+            sep_summary = json.load(handle)
+        with open(os.path.join(sep_test_dir, "results.csv")) as handle:
+            sep_rows = list(csv.DictReader(handle))
+        ha_cols = ("haspi_enhance", "haspi_mixture", "hasqi_enhance", "hasqi_mixture")
+        ha_values = [float(row[col]) for row in sep_rows for col in ha_cols]
         sep_losses = sep.scores["train_loss"] + sep.scores["val_loss"]
         if (not sep.use_pit or sep.epoch_stats[0]["train_steps"] != 2
-                or not np.isfinite(sep_losses).all() or sep.test_timing["utterances"] != 2
+                or not np.isfinite(sep_losses).all()
+                or sep_tester.test_timing["utterances"] != 2 or len(sep_rows) != 2
                 or not np.isfinite(sep_summary["enhanced"]["sisdr"])):
             fail(f"cli: Sepformer run: pit {sep.use_pit}, {sep.epoch_stats}, {sep.scores}, "
-                 f"{sep_summary}")
+                 f"{len(sep_rows)} rows, {sep_summary}")
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in ha_values) or not {
+                "haspi", "hasqi"} <= set(sep_summary["enhanced"]):
+            fail(f"cli: Sepformer --mode test HA columns {ha_values}, summary {sep_summary}")
         if min(sep_train_launches["mha_fwd"], sep_train_launches["mha_bwd"],
                sep_test_launches["mha_fwd"]) == 0:
             fail(f"cli: Sepformer did not launch the attention kernels: train "
@@ -2613,7 +2938,8 @@ def cli_phase(dev) -> dict:
         "wav_agreement": wav_agreement, "cli_validation_loss": cli_loss, "cli_s": cli_s,
         "launches": {"train": train_launches, "test": test_launches,
                      "sepformer_train": sep_train_launches, "sepformer_test": sep_test_launches},
-        "sepformer_epoch_stats": sep.epoch_stats, "sepformer_test_timing": sep.test_timing,
+        "sepformer_epoch_stats": sep.epoch_stats,
+        "sepformer_test_timing": sep_tester.test_timing, "sepformer_test_summary": sep_summary,
         "mel_rnn": {"epoch_stats": mel.epoch_stats, "scores": mel.scores,
                     "solver_step_ms": mel_step_ms, "bare_step_ms": mel_bare,
                     "test_timing": mel_timing,
@@ -2653,10 +2979,15 @@ def cli_phase(dev) -> dict:
         f"{mel_utt['device_s']:.3f}, scoring {mel_utt['scoring_s']:.3f}); launches train "
         f"{mel_train_launches['lstm_fwd']} + {mel_train_launches['lstm_bwd']}, test "
         f"{mel_test_launches['lstm_fwd']}")
+    sep_timing = sep_tester.test_timing
     log(f"cli: Sepformer (configs/sepformer_clarity.yaml, B 4, PIT) train losses "
         f"{sep.scores['train_loss']}, val {sep.scores['val_loss']}; {sep.epoch_stats}; test "
-        f"{sep.test_timing}; mha launches train {sep_train_launches['mha_fwd']} + "
+        f"(--mode test, resumed, ha: 44.1 kHz, one listener a scene) {sep_timing}; summary "
+        f"{sep_summary}; mha launches train {sep_train_launches['mha_fwd']} + "
         f"{sep_train_launches['mha_bwd']}, test {sep_test_launches['mha_fwd']}")
+    log(f"cli: Sepformer HA scoring per utterance: amplification chain on the card "
+        f"{1e3 * sep_timing['ha_amplify_s'] / sep_timing['utterances']:.2f} ms, host ear model "
+        f"{sep_timing['ha_ear_model_s'] / sep_timing['utterances']:.3f} s (two scoring threads)")
     return result
 
 
@@ -2718,6 +3049,9 @@ def main() -> int:
     phase("sepformer_options", sepformer_options_phase, dev)
     phase("dccrn_real_lstm", dccrn_real_lstm_phase, dev)
     phase("zoo", zoo_phase, dev)
+    stream = phase("stream", stream_phase, dev)
+    with tf32_allowed():
+        phase("ha", ha_phase, dev)
     phase("cli", cli_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2735,9 +3069,14 @@ def main() -> int:
                   sep_train["fused"]["launches"] if name == "mha_bwd" else
                   train["fused"]["launches"])
         entry["launches"] = source[name]
+        # the streams' launches (serve/streaming.py), each from its own run
+        streamed = {f"{family} {batch}": row["launches"][name] for family in ("dccrn", "crn")
+                    for batch, row in stream[family]["batches"].items() if row["launches"][name]}
+        if streamed:
+            entry["stream_launches"] = streamed
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "stream_launches", "cases")
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

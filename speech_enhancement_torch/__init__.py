@@ -11,8 +11,11 @@ Ported so far: the twelve model families of the JAX registry
 speech_enhancement_torch.models`` builds and runs each) with the
 hand-written CUDA kernels under ``kernels/``; the host data layer (``data``, ``utils``,
 ``config``); the engine (``train.solver.Solver``, ``train.evaluate``,
-``train.losses``, ``train.metrics``, ``train.checkpoints``); and the entry
-point ``main.main`` with its command line::
+``train.losses``, ``train.metrics``, ``train.checkpoints``); streaming
+serving (``serve``: ``DCCRNStreamer``, ``CRNStreamer``); the Clarity
+hearing-aid chain (``ha``: NAL-R, compressor, HASPI / HASQI,
+``ha.scoring.ClarityScorer``); and the entry point ``main.main`` with its
+command line::
 
     python -m speech_enhancement_torch --config configs/dccrn_vbd.yaml --mode train
 """

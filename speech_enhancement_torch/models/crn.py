@@ -57,9 +57,11 @@ class _CausalConvBlock(nn.Module):
             self.conv.bias.zero_()
         self.norm = BatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        """``time_mode="stream"`` takes no time pad: the streaming caller
+        prepends the cached previous frame (serve/streaming.py)."""
         cd = self.dtype
-        x = F.pad(x.to(cd), (1, 0))
+        x = F.pad(x.to(cd), (1 if time_mode == "offline" else 0, 0))
         y = F.conv2d(x, self.conv.weight.to(cd), self.conv.bias.to(cd), stride=(2, 1))
         return F.elu(self.norm(y))
 
@@ -82,11 +84,15 @@ class _CausalTransConvBlock(nn.Module):
             self.conv.bias.zero_()
         self.norm = BatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        """``time_mode="stream"``: the caller prepends the cached previous
+        input frame, and the T + 2 outputs are sliced [1:-1] instead of
+        [:-1], so a chunk's outputs are the offline frames."""
         cd = self.dtype
         y = F.conv_transpose2d(x.to(cd), self.conv.weight.to(cd), self.conv.bias.to(cd),
                                stride=(2, 1), output_padding=(self.extra_freq_pad, 0))
-        y = self.norm(y[..., :-1])  # causal chomp of the last frame
+        # causal chomp of the last frame
+        y = self.norm(y[..., :-1] if time_mode == "offline" else y[..., 1:-1])
         return F.relu(y) if self.is_last else F.elu(y)
 
 
@@ -94,7 +100,8 @@ class CRN(nn.Module):
     SPEC: SignalSpec = STFT_MONO
 
     def __init__(self, n_fft: int = 512, use_lstm: bool = True, amplitude_compat: bool = False,
-                 dtype: str = "float32", fused_rnn: bool = False,
+                 dtype: str = "float32", fused_rnn: bool = False, hop_length: int = 128,
+                 win_length: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if not isinstance(fused_rnn, bool):
@@ -105,6 +112,11 @@ class CRN(nn.Module):
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {dtype!r}")
         cd = _DTYPES[dtype]
         self.compute_dtype = cd
+        # the STFT the model is served behind (the config's n_fft, hop_length,
+        # win_length); only serve/streaming.py reads hop and window
+        self.n_fft = n_fft
+        self.hop_length = int(hop_length)
+        self.win_length = int(win_length or n_fft)
         self.use_lstm = use_lstm
         self.amplitude_compat = amplitude_compat
         self.fused_rnn = fused_rnn

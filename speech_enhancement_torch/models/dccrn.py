@@ -182,9 +182,11 @@ class _ComplexConvBlock(nn.Sequential):
         kernel = conv_block_kernel(conv.real_conv.weight, conv.imag_conv.weight)
         return kernel, torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
 
-    def forward(self, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x2: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        """``time_mode`` as :func:`ops.complex_conv.complex_conv` takes it."""
         kernel, bias = self.block_kernel()
-        y2 = complex_conv(x2.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype))
+        y2 = complex_conv(x2.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype),
+                          time_mode)
         return _cbn_prelu(self[1], self[2], y2)
 
 
@@ -211,9 +213,14 @@ class _ComplexDeconvBlock(nn.Sequential):
         return kernel, torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
 
     def forward(self, x2: torch.Tensor, skip2: torch.Tensor) -> torch.Tensor:
+        return self.deconv(complex_cat(x2.to(self.dtype), skip2.to(self.dtype)))
+
+    def deconv(self, joined: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        """The block on the joined [trunk; skip] channels (:func:`complex_cat`);
+        ``time_mode`` as :func:`ops.complex_conv.complex_deconv` takes it."""
         kernel, bias = self.block_kernel()
-        joined = complex_cat(x2.to(self.dtype), skip2.to(self.dtype))
-        y2 = complex_deconv(joined, kernel.to(self.dtype), bias.to(self.dtype))
+        y2 = complex_deconv(joined.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype),
+                            time_mode)
         if self.last:
             return y2
         return _cbn_prelu(self[1], self[2], y2)

@@ -25,23 +25,33 @@ def deconv_block_kernel(wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0)
 
 
-def complex_conv(x2: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def complex_conv(x2: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                 time_mode: str = "offline") -> torch.Tensor:
     """Stride (2, 1), freq pad (2, 2), causal time pad (1, 0):
-    [B, 2Cin, F, T] -> [B, 2Cout, F/2, T]."""
-    x2 = F.pad(x2, (1, 0, 2, 2))  # time (1, 0), freq (2, 2)
+    [B, 2Cin, F, T] -> [B, 2Cout, F/2, T].
+
+    ``time_mode="stream"`` takes no time pad: the streaming caller prepends
+    the cached previous frame (serve/streaming.py), so [.., T + 1] in gives
+    the offline frames at those T indices."""
+    x2 = F.pad(x2, (1 if time_mode == "offline" else 0, 0, 2, 2))  # time (1, 0), freq (2, 2)
     return F.conv2d(x2, kernel, bias, stride=(2, 1))
 
 
-def complex_deconv(joined: torch.Tensor, kernel: torch.Tensor,
-                   bias: torch.Tensor) -> torch.Tensor:
+def complex_deconv(joined: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                   time_mode: str = "offline") -> torch.Tensor:
     """Transposed conv, stride (2, 1), freq crop [2:-1], time chomp [1:]:
-    [B, 2Cin, F, T] -> [B, 2Cout, 2F, T]."""
+    [B, 2Cin, F, T] -> [B, 2Cout, 2F, T].
+
+    ``time_mode="stream"``: the caller prepends the cached previous input
+    frame and the time slice is [1:-1], so the T output frames of a
+    [.., T + 1] input are the offline frames one earlier (the one-frame
+    lookahead of each decoder layer becomes a one-frame delay)."""
     # torch's padding=(2, 0), output_padding=(1, 0) is the VALID transpose
     # cropped to rows [2:-1]; the time axis grows by one and loses its
     # first frame (the reference's chomp)
     y2 = F.conv_transpose2d(joined, kernel, bias, stride=(2, 1), padding=(2, 0),
                             output_padding=(1, 0))
-    return y2[..., 1:]
+    return y2[..., 1:] if time_mode == "offline" else y2[..., 1:-1]
 
 
 def complex_cat(x2: torch.Tensor, skip2: torch.Tensor) -> torch.Tensor:

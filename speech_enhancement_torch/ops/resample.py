@@ -38,8 +38,9 @@ def _kernel_bank(old_sr: int, new_sr: int, zeros: int, rolloff: float):
 def resample_frac(x: torch.Tensor, old_sr: int, new_sr: int, zeros: int = 24,
                   rolloff: float = 0.945, output_length: Optional[int] = None) -> torch.Tensor:
     """Resample [..., T] from ``old_sr`` to ``new_sr`` (julius.resample_frac's
-    API): f32 inside, the result in x's dtype, ``ceil(new_sr T / old_sr)``
-    samples unless ``output_length`` says otherwise."""
+    API): f32 inside (f64 for an f64 ``x``), the result in x's dtype,
+    ``ceil(new_sr T / old_sr)`` samples unless ``output_length`` says
+    otherwise."""
     gcd = math.gcd(old_sr, new_sr)
     old, new = old_sr // gcd, new_sr // gcd
     length = x.shape[-1]
@@ -48,8 +49,9 @@ def resample_frac(x: torch.Tensor, old_sr: int, new_sr: int, zeros: int = 24,
         return x
     bank, half_width = _kernel_bank(old, new, zeros, rolloff)
     lead = x.shape[:-1]
-    flat = F.pad(x.reshape(-1, 1, length).float(), (half_width, half_width + old))
-    out = F.conv1d(flat, torch.from_numpy(bank).to(flat.device), stride=old)  # [N, new, Q]
+    flat = x.reshape(-1, 1, length).to(torch.promote_types(x.dtype, torch.float32))
+    flat = F.pad(flat, (half_width, half_width + old))
+    out = F.conv1d(flat, torch.from_numpy(bank).to(flat), stride=old)  # [N, new, Q]
     out = out.transpose(1, 2).reshape(flat.shape[0], -1)[:, :target]  # interleave phases
     return out.reshape(*lead, target).to(x.dtype)
 

@@ -17,7 +17,9 @@ Every layer keeps the JAX package's evaluation order:
 
 ``RNNStack`` stacks layers of one type (bidirectional: forward and
 reversed, concatenated), with the JAX stack's inter-layer dropout in
-``train()`` mode.
+``train()`` mode; an LSTM stack and ``ComplexLSTM`` also take and return
+their (h, c) state, which a stream carries from one chunk to the next
+(serve/streaming.py).
 
 Parameter names are torch ``nn.LSTM`` / ``nn.GRU`` / ``nn.RNN``'s
 (``weight_ih_l0`` [G H, D], ``weight_hh_l0`` [G H, H], ``bias_ih_l0``,
@@ -195,14 +197,17 @@ _GATES = {"lstm": 4, "gru": 3, "rnn": 1}
 
 def _direction(rnn_type: str, x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                b_ih: Optional[torch.Tensor], b_hh: Optional[torch.Tensor],
-               dtype: Optional[torch.dtype], reverse: bool, fused: bool) -> torch.Tensor:
-    """One direction of one layer of ``rnn_type`` -> [B, T, H]."""
+               dtype: Optional[torch.dtype], reverse: bool, fused: bool, init_state=None
+               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """One direction of one layer of ``rnn_type`` -> ([B, T, H], the LSTM's
+    final (h, c), or None for the GRU and the vanilla RNN, which start
+    from zero)."""
     if rnn_type == "gru":
-        return gru_recurrence(x, w_ih, w_hh, b_ih, b_hh, dtype, reverse)
+        return gru_recurrence(x, w_ih, w_hh, b_ih, b_hh, dtype, reverse), None
     bias = None if b_ih is None else b_ih + b_hh
     if rnn_type == "rnn":
-        return rnn_recurrence(x, w_ih, w_hh, bias, dtype, reverse)
-    return lstm_recurrence(x, w_ih, w_hh, bias, dtype, reverse, fused=fused)[0]
+        return rnn_recurrence(x, w_ih, w_hh, bias, dtype, reverse), None
+    return lstm_recurrence(x, w_ih, w_hh, bias, dtype, reverse, init_state, fused)
 
 
 class _Recurrent(nn.Module):
@@ -230,7 +235,7 @@ class _Recurrent(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _direction(self.rnn_type, x, self.weight_ih_l0, self.weight_hh_l0,
-                          self.bias_ih_l0, self.bias_hh_l0, self.dtype, self.reverse, False)
+                          self.bias_ih_l0, self.bias_hh_l0, self.dtype, self.reverse, False)[0]
 
 
 class GRULayer(_Recurrent):
@@ -316,21 +321,34 @@ class RNNStack(nn.Module):
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, init_state=None, return_state: bool = False):
+        """[B, T, D] -> [B, T, H * directions].
+
+        LSTM stacks carry state: ``init_state`` is one (h0, c0) [B, H] per
+        layer and direction, in the order of the parameters (l0,
+        l0_reverse, l1, ...); ``return_state=True`` returns (output, the
+        final (h, c) in that order), as a stream continues the recurrence
+        from one chunk to the next (serve/streaming.py)."""
+        if (init_state is not None or return_state) and self.rnn_type != "lstm":
+            raise ValueError(f"carried state is for LSTM stacks, not {self.rnn_type!r}")
         out = x
+        states = []
         for layer in range(self.num_layers):
             parts = []
             for suffix in self._suffixes():
                 name = f"l{layer}{suffix}"
                 biases = ((getattr(self, f"bias_ih_{name}"), getattr(self, f"bias_hh_{name}"))
                           if self.use_bias else (None, None))
-                parts.append(_direction(self.rnn_type, out, getattr(self, f"weight_ih_{name}"),
+                start = None if init_state is None else init_state[len(states)]
+                seq, state = _direction(self.rnn_type, out, getattr(self, f"weight_ih_{name}"),
                                         getattr(self, f"weight_hh_{name}"), *biases, self.dtype,
-                                        suffix == "_reverse", self.fused))
+                                        suffix == "_reverse", self.fused, start)
+                parts.append(seq)
+                states.append(state)
             out = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
             if self.training and self.dropout_seed is not None and layer < self.num_layers - 1:
                 out = self._drop(out)
-        return out
+        return (out, states) if return_state else out
 
 
 class Linear(nn.Module):
@@ -378,14 +396,24 @@ class ComplexLSTM(nn.Module):
         else:
             self.r_trans = self.i_trans = None
 
-    def forward(self, xr: torch.Tensor, xi: torch.Tensor):
+    def forward(self, xr: torch.Tensor, xi: torch.Tensor, init_state=None,
+                return_state: bool = False):
+        """(out_r, out_i); with ``return_state``, ((out_r, out_i), state).
+
+        The state is ((h_r, c_r), (h_i, c_i)), the real and the imaginary
+        LSTM's, each [2B, H] because [xr; xi] is stacked on the batch;
+        ``init_state`` takes the same (the JAX ``return_state`` stream
+        mode, serve/streaming.py)."""
         batch = xr.shape[0]
         stacked = torch.cat([xr, xi], dim=0)
-        r_both, _ = self.real_lstm(stacked)  # [Lr(xr); Lr(xi)]
-        i_both, _ = self.imag_lstm(stacked)  # [Li(xr); Li(xi)]
+        state_r, state_i = (None, None) if init_state is None else init_state
+        r_both, state_r = self.real_lstm(stacked, state_r)  # [Lr(xr); Lr(xi)]
+        i_both, state_i = self.imag_lstm(stacked, state_i)  # [Li(xr); Li(xi)]
         out_r = r_both[:batch] - i_both[batch:]
         out_i = r_both[batch:] + i_both[:batch]
         if self.r_trans is not None:
             out_r = self.r_trans(out_r, self.dtype)
             out_i = self.i_trans(out_i, self.dtype)
+        if return_state:
+            return (out_r, out_i), (state_r, state_i)
         return out_r, out_i

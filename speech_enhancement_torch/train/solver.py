@@ -10,9 +10,10 @@ before clipping, optax's global-norm clip and the optimizer's update.
 ``Solver`` drives it: epochs with validation, early stopping with
 patience, checkpoints, resume and preload, and the test pass that scores
 the enhanced and the mixture signals (SI-SDR, STOI, PESQ) into
-``results.csv`` and ``test_summary.json``. The JAX package's
-``steps_per_call`` scan runs here as a plain loop of steps; its data
-parallelism and hearing-aid scoring are not ported and raise.
+``results.csv`` and ``test_summary.json``, with the Clarity hearing-aid
+columns (HASPI / HASQI through ``ha/scoring.py``) when ``config.ha`` is
+set. The JAX package's ``steps_per_call`` scan runs here as a plain loop
+of steps; its data parallelism is not ported and raises.
 """
 
 from __future__ import annotations
@@ -186,10 +187,6 @@ DRAIN_EVERY = 64
 
 def _check_ported(config) -> None:
     """Raise for the parts of a config whose slice is not ported yet."""
-    if str(config.get("ha", "") or ""):
-        raise NotImplementedError(
-            "hearing-aid scoring (config.ha: NAL-R, compressor, HASPI/HASQI) is not ported "
-            "yet: the ha/ slice ports it")
     parallel = config.get("parallel") or {}
     if int(parallel.get("data", 1) or 1) > 1 or bool(parallel.get("multihost", False)):
         raise NotImplementedError(
@@ -233,6 +230,16 @@ class Solver:
         self.pit_discard_compat = bool(config.optim.get("pit_discard_compat", False))
         self.optimizer = get_optimizer(config.optim, model.parameters())
         self.model_config = config.model if spec.domain == "stft" else None
+        # Clarity hearing-aid scoring (reference solver.py:124-130): config.ha
+        # names the HA YAML whose listeners.json holds the audiograms; built
+        # here, on the Solver's device, so that a bad path fails at init
+        self.clarity_scorer = None
+        ha_path = str(config.get("ha", "") or "")
+        if ha_path:
+            from speech_enhancement_torch.ha.scoring import ClarityScorer
+
+            self.clarity_scorer = ClarityScorer(ha_path, input_sr=int(config.dset.sample_rate),
+                                                device=self.device)
 
         root = str(config.solver.get("root", "."))
         stamp = time.strftime("%Y%m%d-%H%M%S")
@@ -472,30 +479,54 @@ class Solver:
         agg = {"enhanced": {"sisdr": [], "stoi": [], "pesq": []},
                "mixture": {"sisdr": [], "stoi": [], "pesq": []}}
         timing = {"utterances": 0, "device_s": 0.0, "scoring_s": 0.0}
+        score_ha = (self.clarity_scorer is not None
+                    and str(self.config.dset.name).lower() == "clarity")
+        if score_ha:
+            timing.update(ha_amplify_s=0.0, ha_ear_model_s=0.0)
 
         def score(clean, enhanced_np, mixture_np, name):
             t0 = time.perf_counter()
             m_enh = metrics_lib.compute_metrics(clean, enhanced_np, sr, include)
             m_mix = metrics_lib.compute_metrics(clean, mixture_np, sr, include)
+            # Clarity HA scoring (reference solver.py:610-616): resample to
+            # the HA rate, amplify for each scene listener, HASPI / HASQI
+            ha_scores = (self.compute_metric_clarity(mixture_np[0], enhanced_np[0], clean[0],
+                                                     name) if score_ha else {})
             if save and self.is_primary:
                 write_wav(os.path.join(self.run_dir, "enhanced", f"{name}.wav"),
                           enhanced_np[0], sr)
-            return m_enh, m_mix, time.perf_counter() - t0
+            return m_enh, m_mix, ha_scores, time.perf_counter() - t0
+
+        def ha_col(ha_scores, col):
+            if self.clarity_scorer is None:
+                return None
+            value = ha_scores.get(col)
+            return "gated" if value is None else value
 
         def consume(name, future) -> None:
-            m_enh, m_mix, seconds = future.result()
+            m_enh, m_mix, ha_scores, seconds = future.result()
             timing["scoring_s"] += seconds
+            if score_ha:
+                timing["ha_amplify_s"] += ha_scores.get("amplify_s", 0.0)
+                timing["ha_ear_model_s"] += ha_scores.get("ear_model_s", 0.0)
             for key in include:
                 if m_enh.get(key) is not None:
                     agg["enhanced"].setdefault(key, []).append(m_enh[key])
                 if m_mix.get(key) is not None:
                     agg["mixture"].setdefault(key, []).append(m_mix[key])
+            for key in ("haspi", "hasqi"):
+                for side, agg_side in (("enhance", "enhanced"), ("mixture", "mixture")):
+                    value = ha_scores.get(f"{key}_{side}")
+                    if value is not None:
+                        agg[agg_side].setdefault(key, []).append(value)
             if results is not None:
                 results.add_result(
                     name,
                     sisdr_enhance=m_enh.get("sisdr"), sisdr_mixture=m_mix.get("sisdr"),
                     stoi_enhance=m_enh.get("stoi"), stoi_mixture=m_mix.get("stoi"),
                     pesq_enhance=m_enh.get("pesq"), pesq_mixture=m_mix.get("pesq"),
+                    **{col: ha_col(ha_scores, col) for col in (
+                        "haspi_enhance", "haspi_mixture", "hasqi_enhance", "hasqi_mixture")},
                 )
 
         eval_batch = max(1, int(cfg.get("batch_size", 1)))
@@ -576,6 +607,15 @@ class Solver:
         if self.is_primary:
             save_json(summary, os.path.join(self.run_dir, "test_summary.json"))
         return summary
+
+    def compute_metric_clarity(self, mixture: np.ndarray, enhanced: np.ndarray,
+                               clean: np.ndarray, name: str) -> Dict[str, Any]:
+        """Clarity hearing-aid scoring of one utterance ([C, T] arrays;
+        reference solver.py:723-746): ``{haspi,hasqi}_{enhance,mixture}``
+        means over the scene's listeners, from ``ha.scoring.ClarityScorer``."""
+        if self.clarity_scorer is None:
+            raise ValueError("config.ha is not set")
+        return self.clarity_scorer.score(clean, mixture, enhanced, name)
 
     # ---------------------------------------------------------- observability
     def spec_audio_visualization(self, mixture: np.ndarray, enhanced: np.ndarray,

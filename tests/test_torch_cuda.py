@@ -1110,3 +1110,88 @@ def test_zoo_lstm_kernels_at_the_demucs_shapes(card, shape, reverse):
     _check_lstm_fwd(card, shape, reverse, torch.float32)
     design, _ = _check_lstm_bwd(card, shape, reverse, torch.float32)
     assert design == "f32"
+
+
+# -- streaming serving and the hearing-aid chain --------------------------------
+
+SMALL_CRN = {"name": "crn", "n_fft": 128, "hop_length": 32, "win_length": 128, "center": True,
+             "dtype": "float32", "fused_rnn": True}
+
+
+# (B, T, H) of the stream's launches: the DCCRN chunk STFT over
+# [(win - hop) tail | 16 x 100] samples, CRN's LSTMs at 16 frames with a
+# carried, non-zero h0 / c0 (configs/crn_vbd.yaml: bf16, H 1792)
+@pytest.mark.parametrize("batch", [1, 64])
+def test_kernels_at_the_stream_shapes(card, batch):
+    from speech_enhancement_torch.kernels.lstm import fused_lstm_plain, lstm_fwd
+    basis = torch.from_numpy(_stft_bases(400, 512)[0]).to(card)
+    x = _randn((batch, 300 + 1600), batch, card)
+    torch.testing.assert_close(stft_kernel(x, basis, 100, 400), stft_plain(x, basis, 100, 400),
+                               rtol=1e-4, atol=2e-3)  # tests/test_pallas.py:22
+    args = _lstm_inputs(16, batch, 1792, torch.bfloat16, card, seed=batch)
+    before = lstm_fwd.launches
+    got = lstm_fwd(*args)
+    want = fused_lstm_plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_fwd.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=LSTM_TOL[torch.bfloat16],
+                                   atol=LSTM_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("family", ["dccrn", "crn"])
+def test_small_streamer_on_card_matches_cpu(card, family):
+    """A small f32 stream on the card vs the same weights on the CPU path
+    (held against the JAX streamers in tests/test_torch_streaming_*.py),
+    within 2e-4 of the peak; the card's chunks launch the STFT and mask-E
+    kernels once each (DCCRN) or the LSTM forward once a layer (CRN)."""
+    from speech_enhancement_torch.kernels.lstm import lstm_fwd
+    from speech_enhancement_torch.serve import CRNStreamer, DCCRNStreamer
+    cfg = Config(SMALL if family == "dccrn" else SMALL_CRN)
+    wav = (0.3 * np.random.default_rng(21).standard_normal((2, 8000))).astype(np.float32)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        model, _ = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(6))
+        streamer = DCCRNStreamer(model) if family == "dccrn" else CRNStreamer(model)
+        before = (stft_kernel.launches, mask_e_kernel.launches, lstm_fwd.launches)
+        outs.append(streamer.enhance(torch.from_numpy(wav).to(dev)).cpu().numpy())
+        after = (stft_kernel.launches, mask_e_kernel.launches, lstm_fwd.launches)
+        chunks = -(-(8000 + streamer.latency + (0 if family == "dccrn" else
+                                                 streamer.chunk_samples))
+                   // streamer.chunk_samples)
+        want = (chunks, chunks, 0) if family == "dccrn" else (0, 0, 2 * chunks)
+        launched = tuple(a - b for a, b in zip(after, before))
+        assert launched == (want if dev.type == "cuda" else (0, 0, 0)), launched
+    assert np.isfinite(outs[0]).all()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=2e-4 * np.abs(outs[1]).max())
+
+
+def test_ha_chain_on_card_matches_cpu(card, tmp_path):
+    """ClarityScorer on the card with TF32 allowed (cuDNN's default for
+    convolutions, and for matmuls too) vs the CPU: the resample, NAL-R and
+    compressor within 1e-5 (tanh-clipped output); the four better-ear
+    scores, which a speech-like input puts inside (0, 1), within 1e-4 of
+    the CPU's relatively (tests/test_torch_ha.py's bounds)."""
+    from speech_enhancement_torch.data.synthetic import make_ha_config
+    from speech_enhancement_torch.ha.scoring import ClarityScorer
+    ha_yaml = make_ha_config(str(tmp_path), scenes=["S00001"], n_listeners=2, fs=44100)
+    rng = np.random.default_rng(22)
+    t = np.arange(12000) / 16000
+    phase = 2 * np.pi * np.cumsum(120.0 + 30.0 * np.sin(2 * np.pi * 0.7 * t)) / 16000
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 12))
+    clean = 0.1 * (voiced * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+                   + 0.5 * rng.standard_normal(t.shape))
+    clean = np.stack([clean, 0.9 * clean]).astype(np.float32)
+    mixture = (clean + 0.01 * rng.standard_normal(clean.shape)).astype(np.float32)
+    enhanced = (clean + 0.002 * rng.standard_normal(clean.shape)).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        scores = [ClarityScorer(ha_yaml, input_sr=16000, device=dev).score(
+            clean, mixture, enhanced, "S00001_mix") for dev in (card, "cpu")]
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_allclose(scores[0]["amplified"], scores[1]["amplified"], rtol=0,
+                               atol=1e-5)
+    for key in ("haspi_enhance", "hasqi_enhance", "haspi_mixture", "hasqi_mixture"):
+        assert 0.0 < scores[1][key] < 1.0, (key, scores[1][key])
+        assert abs(scores[0][key] - scores[1][key]) <= 1e-4 * scores[1][key], key

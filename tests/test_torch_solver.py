@@ -318,8 +318,6 @@ def test_main_raises_for_what_is_not_ported(vbd_root, tmp_path):
             main(cfg, mode=None)
     with pytest.raises(ValueError, match="unknown mode"):
         main(cfg, mode="serve", device="cpu")
-    with pytest.raises(NotImplementedError, match="the ha/ slice"):
-        main(cfg.merged({"ha": str(tmp_path / "ha.yaml")}), mode=None, device="cpu")
     for parallel in ({"data": 2}, {"multihost": True}):
         with pytest.raises(NotImplementedError, match="parallel/mesh.py slice"):
             main(cfg.merged({"parallel": parallel}), mode=None, device="cpu")
