@@ -76,7 +76,15 @@ resumed and scores a test set (SI-SDR, STOI, PESQ), mel-rnn trains two
 epochs and tests resumed, Sepformer trains on Clarity scenes and
 ``--mode test`` writes the hearing-aid columns (HASPI / HASQI), and
 ``python -m speech_enhancement_torch --mode validation`` runs in a
-subprocess (``cli_phase``). Each phase's seconds and the total are
+subprocess (``cli_phase``). Before it, the ``dp`` phase trains data
+parallel (parallel/mesh.py, ``DistributedDataParallel``): ``main()`` with
+an explicit mesh over NCCL, one rank a card, against the same DCCRN run
+without a group; two ranks on card 0 over gloo with CUDA tensors, one
+step each of DCCRN ``cbn_fold``, DCCRN ``use_fused_blocks`` and CRN with
+``fused_rnn`` at full width held to JAX's ``pmean`` computed in one
+process; and ``parallel/dryrun.py:dryrun_multichip`` over NCCL (Sepformer's
+attention kernels among its families); every rank reports its own
+launches (``dp_phase``). Each phase's seconds and the total are
 logged. It imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
@@ -93,6 +101,7 @@ last line is printed; so does a host without CUDA.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import functools
@@ -106,11 +115,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from speech_enhancement_torch.config import Config, load_config
 from speech_enhancement_torch.data.loader import encode_wire_int16
-from speech_enhancement_torch.kernels import _build
+from speech_enhancement_torch.kernels import _build, counted
 from speech_enhancement_torch.kernels import attention as attn_k
 from speech_enhancement_torch.kernels import conv_block as cb
 from speech_enhancement_torch.kernels import lstm as lstm_k
@@ -122,6 +132,7 @@ from speech_enhancement_torch.kernels.stft import stft_design, stft_kernel, stft
 from speech_enhancement_torch.models import build_model
 from speech_enhancement_torch.models.dccrn import _stft_bases
 from speech_enhancement_torch.ops.stft import istft_custom, stft_custom
+from speech_enhancement_torch.parallel import mesh as mesh_lib
 from speech_enhancement_torch.ops.complex_conv import (complex_cat, conv_from_hwio,
                                                        deconv_from_hwio)
 from speech_enhancement_torch.train.evaluate import evaluate_utterance, extract_windows
@@ -982,11 +993,7 @@ def agree(outs, refs, what: str) -> list:
     return agreement
 
 
-COUNTED = {"stft": stft_kernel, "mask_e": mask_e_kernel, "conv_block": fused_conv_block,
-           "deconv_block": fused_deconv_block, "enc_bwd_gz": cb.enc_bwd_gz,
-           "enc_bwd_dw": cb.enc_bwd_dw, "dec_bwd_gz": cb.dec_bwd_gz,
-           "dec_bwd_dw": cb.dec_bwd_dw, "lstm_fwd": lstm_k.lstm_fwd,
-           "lstm_bwd": lstm_k.lstm_bwd, "mha_fwd": attn_k.mha_fwd, "mha_bwd": attn_k.mha_bwd}
+COUNTED = counted()
 
 
 def reset_launches() -> None:
@@ -2692,6 +2699,301 @@ def ha_phase(dev) -> dict:
     return result
 
 
+# -- data parallelism (parallel/mesh.py) ---------------------------------------
+
+DP_UTTERANCES = 96  # 4 to 5 s each: 67 train (3 steps of 16 an epoch), 14 val, 15 test
+DP_STEPS = 3
+DP_TIMEOUT = 300    # seconds for each spawn's ranks
+# the steps held to JAX's pmean, each on its own kernels: (tag, config,
+# model overrides, the kernels its step must launch on every rank)
+DP_CASES = (
+    ("dccrn cbn_fold", CONFIG, {"cbn_fold": True}, ("stft", "mask_e")),
+    ("dccrn fused", CONFIG, {"use_fused_blocks": True},
+     ("stft", "mask_e", "conv_block", "deconv_block", "enc_bwd_gz", "enc_bwd_dw", "dec_bwd_gz",
+      "dec_bwd_dw")),
+    ("crn", CRN_CONFIG, {}, ("lstm_fwd", "lstm_bwd")),
+)
+# running statistics against the mean of the two half-batch steps' (the
+# same kernels in one process): within 1% of each buffer's largest magnitude
+DP_STATS_RTOL = 0.01
+
+
+def strict_f32() -> None:
+    """The smoke's f32 setting (main()), in a rank process of its own."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dp_batch(path):
+    """The host batch of a ``DP_CASES`` step: the config's batch of 16
+    four-second rows (DCCRN: N(0, 0.1^2) on the int16 wire; CRN:
+    ``crn_train_batch``), made with numpy from the seed."""
+    if path == CRN_CONFIG:
+        return crn_train_batch()
+    rng = np.random.default_rng(SEED + 11)
+    n = int(TRAIN_SECONDS * 16000)
+    mixture = (0.1 * rng.standard_normal((DCCRN_TRAIN_BATCH, 1, n))).astype(np.float32)
+    target = (0.1 * rng.standard_normal((DCCRN_TRAIN_BATCH, 1, 1, n))).astype(np.float32)
+    return encode_wire_int16(mixture), encode_wire_int16(target)
+
+
+def half_step(model, spec, cfg, mixture, sources, dev):
+    """JAX's step on one shard without the pmean: loss, flat gradients and
+    the running statistics after the forward (no optimizer step)."""
+    model_config = cfg.model if spec.domain == "stft" else None
+    mixture, target = adapt(spec, decode_wire(mixture, dev), decode_wire(sources, dev),
+                            model_config)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = compute_loss("mse", model(mixture), target, mixture)
+    loss.backward()
+    grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                       for p in model.parameters()])
+    return float(loss.detach()), grads, [b.detach().clone() for b in mesh_lib.batch_stats(model)]
+
+
+def dp_pair_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of two on card 0 over gloo (CUDA tensors): each of
+    ``DP_CASES`` one data-parallel step (DDP, the statistics and the loss
+    averaged), its launches read just after. Rank 0 then computes JAX's
+    pmean in one process: the two half-batch steps from the same weights,
+    gradients and statistics averaged. Both ranks check that their
+    parameters and buffers equal rank 0's after the step."""
+    strict_f32()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world, rank=rank)
+    out = {}
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = mesh_lib.make_mesh(data=world, device=dev)
+        for tag, path, overrides, _ in DP_CASES:
+            mixture, sources = dp_batch(path)
+            cfg, model, spec = load_model(dev, path, **overrides)
+            opt = get_optimizer(Config(TRAIN_OPTIM), model.parameters())
+            ddp = mesh_lib.shard_train_step(model, mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            loss, norm = train_step(ddp, spec, opt, mesh_lib.shard_batch(mesh, mixture),
+                                    mesh_lib.shard_batch(mesh, sources), "mse", device=dev,
+                                    model_config=cfg.model if spec.domain == "stft" else None)
+            stats = mesh_lib.batch_stats(model)
+            mesh_lib.pmean_(stats)
+            loss = loss.float().reshape(1)
+            mesh_lib.pmean_([loss])
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            launches = read_launches()
+            state = torch.cat([t.detach().float().flatten() for t in model.state_dict().values()])
+            ref_state = state.clone()
+            dist.broadcast(ref_state, src=0)
+            row = {"wrapper": type(ddp).__name__, "launches": launches, "loss": float(loss),
+                   "grad_norm": float(norm), "step_ms": step_ms,
+                   "max_diff_to_rank0": float((state - ref_state).abs().max())}
+            if rank == 0:
+                grads = flat_grads(model)  # clipped in place if norm > clip: same direction
+                _, ref, _ = load_model(dev, path, **overrides)
+                init = {k: v.clone() for k, v in ref.state_dict().items()}
+                halves = []
+                for half in range(world):
+                    ref.load_state_dict(init)
+                    shard = mesh_lib.Mesh(shape=mesh.shape, rank=half, world_size=world,
+                                          data_index=half, device=dev, host_ranks=world)
+                    halves.append(half_step(ref, spec, cfg, mesh_lib.shard_batch(shard, mixture),
+                                            mesh_lib.shard_batch(shard, sources), dev))
+                want_loss = sum(h[0] for h in halves) / world
+                want_grads = sum(h[1] for h in halves) / world
+                want_norm = float(torch.linalg.vector_norm(want_grads))
+                stats_err = max(
+                    ((got - sum(h[2][i] for h in halves) / world).abs().max()
+                     / max(float(got.abs().max()), 1e-12)).item()
+                    for i, got in enumerate(stats))
+                row.update(pmean={
+                    "loss_rel": abs(float(loss) - want_loss) / abs(want_loss),
+                    "grad_norm_rel": abs(float(norm) - want_norm) / want_norm,
+                    "grad_cosine": F.cosine_similarity(grads, want_grads, dim=0).item(),
+                    "stats_rel": stats_err, "n_stats": len(stats)})
+                del ref
+            out[tag] = row
+            del ddp, model, opt
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"pair{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_main_rank(rank: int, world: int, init_file: str, cfg: dict, out_dir: str) -> None:
+    """One rank of ``world`` (one a card) over NCCL: ``main()`` trains the
+    config with an explicit mesh, as JAX's ``main(mesh=...)``."""
+    from speech_enhancement_torch.main import main as port_main
+
+    strict_f32()
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", world_size=world, rank=rank)
+    try:
+        mesh = mesh_lib.make_mesh(data=world, device=torch.device("cuda", rank))
+        reset_launches()
+        solver = port_main(Config(cfg), mode="train", return_solver=True,
+                           run_dir=os.path.join(out_dir, f"ddp_rank{rank}"), mesh=mesh)
+        torch.cuda.synchronize()
+        torch.save({"launches": read_launches(), "scores": solver.scores,
+                    "epoch_stats": solver.epoch_stats,
+                    "wrapper": type(solver._train_model).__name__,
+                    "backend": dist.get_backend(), "world_size": dist.get_world_size()},
+                   os.path.join(out_dir, f"main{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(dev) -> dict:
+    """Data-parallel training (parallel/mesh.py: DDP, ``pmean`` of the
+    running statistics and the loss) on the card, in three parts:
+
+    * NCCL with one rank a card (``torch.cuda.device_count()``): ``main()``
+      with an explicit mesh trains DCCRN at the full width of
+      configs/dccrn_vbd.yaml (bf16, si-sdr, B 16; the STFT and mask-E
+      kernels) two epochs of 3 steps on 96 synthetic utterances; the same
+      config trains in this process without a group. Compares the Solver's
+      step ms (epoch 1) and the checkpoints' keys.
+    * Two ranks on card 0 over gloo with CUDA tensors: one step each of
+      DCCRN ``cbn_fold`` (rows 1, 2), DCCRN ``use_fused_blocks`` (rows 1 to
+      8) and CRN with ``fused_rnn`` (rows 9, 10) at full width, host batch
+      16 x 4 s, held to JAX's pmean computed in one process (the smoke's
+      first-step bounds; the statistics within DP_STATS_RTOL); the ranks'
+      parameters and buffers equal after the step; every kernel of a step
+      launched on each rank.
+    * ``dryrun_multichip(torch.cuda.device_count())``: DCCRN, Demucs with
+      remat and Sepformer with the attention kernels (rows 11, 12), one
+      data-parallel step each over NCCL.
+
+    Two processes on one card are not a scaling measurement: the step ms
+    here say what DDP costs, not what a second card gains."""
+    import shutil
+    import tempfile
+
+    from speech_enhancement_torch.data.synthetic import make_voicebank_demand
+    from speech_enhancement_torch.main import main as port_main
+    from speech_enhancement_torch.parallel.dryrun import FAMILIES, dryrun_multichip
+
+    n_cards = torch.cuda.device_count()
+    log(f"dp: backends nccl (main(), dryrun_multichip: {n_cards} rank(s), one a card) and gloo "
+        f"(two ranks on card 0, CUDA tensors); torch.cuda.device_count() = {n_cards}")
+    tmp = tempfile.mkdtemp(prefix="se_torch_dp_")
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
+    try:
+        # the pair and the dry run (correctness only) run together while this
+        # process writes the fixture; the two timed main() runs run alone
+        with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+            pair = pool.submit(mesh_lib.spawn, dp_pair_rank, 2,
+                               (os.path.join(tmp, "pair_init"), tmp), timeout=DP_TIMEOUT)
+            dry = pool.submit(dryrun_multichip, n_cards, timeout=DP_TIMEOUT)
+            vbd = make_voicebank_demand(os.path.join(tmp, "vbd"), n_utterances=DP_UTTERANCES,
+                                        min_seconds=4.0, max_seconds=5.0, seed=SEED)
+            pair.result()
+            dry = dry.result()
+        lap("gloo_pair_and_dryrun")
+        cfg = cli_config(CONFIG, tmp, vbd, epochs=2, all_steps=False, total_steps=DP_STEPS,
+                         **{"validation.total_steps": 1, "test.total_steps": 1,
+                            "test.num_show": 0})
+        cfg.dset.split = [0.7, 0.15, 0.15]
+        single = port_main(cfg, mode="train", return_solver=True,
+                           run_dir=os.path.join(tmp, "single"))
+        lap("single_process_main")
+        mesh_lib.spawn(dp_main_rank, n_cards,
+                       (os.path.join(tmp, "main_init"), cfg.to_dict(), tmp), timeout=DP_TIMEOUT)
+        lap("nccl_main")
+        ranks_main = [torch.load(os.path.join(tmp, f"main{r}.pt")) for r in range(n_cards)]
+        pairs = [torch.load(os.path.join(tmp, f"pair{r}.pt")) for r in range(2)]
+        keys = {name: list(torch.load(os.path.join(tmp, name, "checkpoints", "latest_model.ckpt"),
+                                      map_location="cpu")["model"])
+                for name in ("single", "ddp_rank0")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # NCCL through main()
+    single_ms = 1e3 * single.epoch_stats[1]["train_s"] / single.epoch_stats[1]["train_steps"]
+    ddp = ranks_main[0]
+    ddp_ms = 1e3 * ddp["epoch_stats"][1]["train_s"] / ddp["epoch_stats"][1]["train_steps"]
+    for r, found in enumerate(ranks_main):
+        if (found["wrapper"] != "DistributedDataParallel" or found["backend"] != "nccl"
+                or [e["train_steps"] for e in found["epoch_stats"]] != [DP_STEPS, DP_STEPS]
+                or not np.isfinite(found["scores"]["train_loss"]
+                                   + found["scores"]["val_loss"]).all()
+                or min(found["launches"]["stft"], found["launches"]["mask_e"]) == 0):
+            fail(f"dp: main() on NCCL rank {r}: {found}")
+    if (keys["single"] != keys["ddp_rank0"]
+            or any(k.startswith("module.") for k in keys["ddp_rank0"])):
+        fail(f"dp: checkpoint keys differ: DDP {keys['ddp_rank0'][:4]}..., single "
+             f"{keys['single'][:4]}...")
+    log(f"dp: main() over NCCL ({n_cards} rank(s)), DCCRN configs/dccrn_vbd.yaml B 16: train "
+        f"losses {ddp['scores']['train_loss']}, val {ddp['scores']['val_loss']}; DDP Solver "
+        f"{ddp_ms:.1f} ms a step (epoch 1) vs the single-process Solver {single_ms:.1f} ms "
+        f"(losses {single.scores['train_loss']}); launches rank 0 {ddp['launches']['stft']} stft + "
+        f"{ddp['launches']['mask_e']} mask_e; checkpoint keys equal ({len(keys['single'])}, no "
+        "module. prefix)")
+
+    # two ranks on one card, held to the pmean computed in one process
+    pair_rows = {}
+    for tag, path, overrides, kernels_of_step in DP_CASES:
+        r0, r1 = pairs[0][tag], pairs[1][tag]
+        agreement = r0["pmean"]
+        for r, row in enumerate((r0, r1)):
+            missing = [k for k in kernels_of_step if row["launches"][k] == 0]
+            if row["wrapper"] != "DistributedDataParallel" or missing:
+                fail(f"dp {tag}: rank {r} wrapper {row['wrapper']}, kernels not launched "
+                     f"{missing}: {row['launches']}")
+            if row["max_diff_to_rank0"] != 0.0:
+                fail(f"dp {tag}: rank {r}'s parameters and buffers differ from rank 0's by "
+                     f"{row['max_diff_to_rank0']}")
+        if (r0["loss"] != r1["loss"] or r0["grad_norm"] != r1["grad_norm"]
+                or agreement["loss_rel"] > TRAIN_LOSS_RTOL
+                or agreement["grad_norm_rel"] > TRAIN_NORM_RTOL
+                or agreement["grad_cosine"] < TRAIN_MIN_COSINE
+                or agreement["stats_rel"] > DP_STATS_RTOL):
+            fail(f"dp {tag}: two ranks vs JAX's pmean in one process: {agreement}; rank losses "
+                 f"{r0['loss']} / {r1['loss']}, grad norms {r0['grad_norm']} / {r1['grad_norm']}")
+        pair_rows[tag] = [r0, r1]
+        log(f"dp {tag} (two gloo ranks on card 0, host batch 16, {os.path.basename(path)} "
+            f"{overrides}): loss {r0['loss']:.6f}, grad norm {r0['grad_norm']:.4f} on both ranks; "
+            f"vs pmean in one process: loss {agreement['loss_rel']:.2e} (bound "
+            f"{TRAIN_LOSS_RTOL}), grad norm {agreement['grad_norm_rel']:.2e} (bound "
+            f"{TRAIN_NORM_RTOL}), cosine {agreement['grad_cosine']:.6f} (bound "
+            f"{TRAIN_MIN_COSINE}), {agreement['n_stats']} statistics {agreement['stats_rel']:.2e} "
+            f"(bound {DP_STATS_RTOL}); parameters and buffers equal on both ranks; DDP step "
+            f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms (first step, two processes and the "
+            f"dry run on one card); launches rank 0 "
+            + json.dumps({k: v for k, v in r0["launches"].items() if v}) + ", rank 1 "
+            + json.dumps({k: v for k, v in r1["launches"].items() if v}))
+
+    # the dry run over NCCL
+    for r, found in enumerate(dry):
+        if min(found["launches"]["mha_fwd"], found["launches"]["mha_bwd"]) == 0 or any(
+                found[f]["step"] != 1 for f in FAMILIES):
+            fail(f"dp: dryrun_multichip rank {r}: {found}")
+    log(f"dp: dryrun_multichip({n_cards}) over NCCL: " + "; ".join(
+        f"{f} loss {dry[0][f]['loss']:.4f} grad norm {dry[0][f]['grad_norm']:.4f}"
+        for f in FAMILIES) + "; launches rank 0 "
+        + json.dumps({k: v for k, v in dry[0]["launches"].items() if v}))
+    log(f"dp: seconds by part {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+
+    runs = {f"{tag} rank {r}": pairs[r][tag]["launches"] for tag, *_ in DP_CASES for r in range(2)}
+    runs.update({f"main rank {r}": found["launches"] for r, found in enumerate(ranks_main)})
+    runs.update({f"dryrun rank {r}": found["launches"] for r, found in enumerate(dry)})
+    launches = {name: {run: got[name] for run, got in runs.items() if got[name]}
+                for name in COUNTED}
+    return {"seconds": seconds, "single_step_ms": single_ms, "ddp_step_ms": ddp_ms,
+            "main": ranks_main, "pairs": pair_rows, "dryrun": dry, "launches": launches,
+            "n_cards": n_cards}
+
+
 CLI_UTTERANCES = 184  # 4 to 10 s each: 128 train (8 steps of 16), 27 val, 29 test
 CLI_SCENES = 12       # Clarity scenes of 4 s: 8 train (2 steps of 4), 1 val, 3 test
 
@@ -3052,6 +3354,7 @@ def main() -> int:
     stream = phase("stream", stream_phase, dev)
     with tf32_allowed():
         phase("ha", ha_phase, dev)
+    dp = phase("dp", dp_phase, dev)
     phase("cli", cli_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3074,9 +3377,12 @@ def main() -> int:
                     for batch, row in stream[family]["batches"].items() if row["launches"][name]}
         if streamed:
             entry["stream_launches"] = streamed
+        # the data-parallel runs' launches, each rank's own (dp_phase)
+        entry["dp_launches"] = dp["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "stream_launches", "cases")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "stream_launches", "dp_launches",
+            "cases")
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,10 @@ hand-written CUDA kernels under ``kernels/``; the host data layer (``data``, ``u
 ``train.losses``, ``train.metrics``, ``train.checkpoints``); streaming
 serving (``serve``: ``DCCRNStreamer``, ``CRNStreamer``); the Clarity
 hearing-aid chain (``ha``: NAL-R, compressor, HASPI / HASQI,
-``ha.scoring.ClarityScorer``); and the entry point ``main.main`` with its
-command line::
+``ha.scoring.ClarityScorer``); data-parallel training over
+``torch.distributed`` (``parallel``: DDP, one process a card, and the
+multi-device dry run ``parallel.dryrun``); and the entry point
+``main.main`` with its command line::
 
     python -m speech_enhancement_torch --config configs/dccrn_vbd.yaml --mode train
 """

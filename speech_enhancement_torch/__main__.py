@@ -3,7 +3,14 @@
     python -m speech_enhancement_torch --config configs/dccrn_vbd.yaml \
         --mode train|validation|test [--save] [--dev] [--device cpu] [--run-dir DIR]
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Runs on the CUDA card unless ``--device cpu`` is given. Data-parallel
+training runs one process a card, with ``parallel.data: N`` in the YAML:
+
+    torchrun --standalone --nproc_per_node N -m speech_enhancement_torch \
+        --config <yaml> --mode train
+
+(each process joins the NCCL group from torchrun's environment and trains
+on ``cuda:LOCAL_RANK``; rank 0 writes the run dir).
 """
 
 import argparse

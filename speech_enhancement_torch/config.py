@@ -222,9 +222,16 @@ _DEFAULTS: Dict[str, Any] = {
         "validation": {"total_steps": 4, "interval": 1, "metric": "loss"},
         "test": {"total_steps": 4, "interval": 10, "num_show": 2, "metric": "sisdr"},
     },
-    # Data parallelism (``data`` > 1) and multi-host runs are not ported:
-    # the Solver raises for them. The section keeps the JAX package's
-    # fields so its configs load unchanged.
+    # Data parallelism (parallel/mesh.py), with the JAX package's fields.
+    # A process holds one card: ``data * model`` is the world size of the
+    # torch.distributed group, which main() joins when it is > 1 or
+    # ``multihost`` is set, from ``coordinator_address`` (tcp://, with
+    # ``num_processes`` / ``process_id`` as torch's world size and rank) or
+    # from torchrun's environment (env://). ``solver.batch_size`` is the
+    # PER-HOST batch, as in JAX: the ranks of a host split it along dim 0,
+    # each host reads a disjoint shard of the train files
+    # (data.loader.shard_for_process), and the global batch a step consumes
+    # is batch_size times the number of hosts.
     "parallel": {"data": 1, "model": 1, "multihost": False,
                  "coordinator_address": "", "num_processes": 0,
                  "process_id": -1},

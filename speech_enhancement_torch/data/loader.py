@@ -265,9 +265,9 @@ def get_train_wav_dataset(dset_config, model_config, seed: int = 0):
         total = len(find_wav_files(mix_dir))
         ratios = [float(r) for r in dset_config.split]
         splits = split_list(list(range(total)), ratios)
-        # several processes: each trains on a disjoint shard of the train
+        # several hosts: each trains on a disjoint shard of the train
         # split; val/test stay whole so every process reports the same
-        # validation loss (one process: identity)
+        # validation loss (one host: identity)
         splits[0] = shard_for_process(splits[0])
         common = dict(
             mixture_dataset=mix_dir,
@@ -296,7 +296,7 @@ def get_train_wav_dataset(dset_config, model_config, seed: int = 0):
             scenes = json.load(handle)
         ratios = [float(r) for r in dset_config.split]
         splits = split_list(scenes, ratios)
-        splits[0] = shard_for_process(splits[0])  # per-process train shard
+        splits[0] = shard_for_process(splits[0])  # per-host train shard
         common = dict(
             path_dataset=root,
             normalize=dset_config.norm,
@@ -369,19 +369,20 @@ def get_dataloader(dataset, config, train: bool = True, seed: int = 0,
 
 def shard_for_process(items: Sequence, index: Optional[int] = None,
                       count: Optional[int] = None) -> list:
-    """Disjoint per-process shard of a file/scene list.
+    """Disjoint per-host shard of a file/scene list.
 
-    Each process loads only every ``count``-th item, so the global batch is
-    assembled from disjoint process shards (SURVEY §2c). ``index`` and
-    ``count`` default to ``torch.distributed``'s rank and world size when
-    its process group is initialised; otherwise this is the identity.
+    Each host loads only every ``count``-th item, so the global batch is
+    assembled from disjoint host shards (SURVEY §2c). A host is what a JAX
+    process is: one machine driving all of its devices. ``index`` and
+    ``count`` default to this host's index and the number of hosts
+    (``parallel/mesh.py:host_index_count``: rank // ``LOCAL_WORLD_SIZE``
+    over world size // ``LOCAL_WORLD_SIZE``; without torchrun's
+    ``LOCAL_WORLD_SIZE`` the group counts as one host). With one host this
+    is the identity, and every rank of the host reads the whole list.
     """
     if index is None:
-        import torch.distributed as dist
+        from speech_enhancement_torch.parallel.mesh import host_index_count
 
-        if dist.is_available() and dist.is_initialized():
-            index, count = dist.get_rank(), dist.get_world_size()
-        else:
-            index, count = 0, 1
+        index, count = host_index_count()
     count = max(int(count or 1), 1)
     return list(items)[index::count]

@@ -307,6 +307,12 @@ class RNNStack(nn.Module):
     def _suffixes(self):
         return ("", "_reverse") if self.bidirectional else ("",)
 
+    def reseed_dropout(self, seed: int) -> None:
+        """Draw the dropout masks from ``seed`` from here on (a data-parallel
+        rank folds its shard's index in: ``parallel/mesh.py``)."""
+        self.dropout_seed = int(seed)
+        self._dropout_generators.clear()
+
     def dropout_generator(self, device: torch.device) -> torch.Generator:
         """The generator of the dropout masks on ``device`` (made at first use)."""
         device = torch.device(device)

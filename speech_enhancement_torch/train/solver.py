@@ -13,7 +13,13 @@ the enhanced and the mixture signals (SI-SDR, STOI, PESQ) into
 ``results.csv`` and ``test_summary.json``, with the Clarity hearing-aid
 columns (HASPI / HASQI through ``ha/scoring.py``) when ``config.ha`` is
 set. The JAX package's ``steps_per_call`` scan runs here as a plain loop
-of steps; its data parallelism is not ported and raises.
+of steps. With a ``mesh`` (``parallel/mesh.py``) the steps are data
+parallel: each rank takes its rows of the host batch through the model
+wrapped in ``DistributedDataParallel`` (the gradients averaged before the
+clip), and the running statistics and the reported loss are averaged over
+the group after each step, as the JAX step's ``pmean``. Validation and the
+test pass run whole on every rank on the bare model, so every rank takes the
+same early-stopping decision; rank 0 writes every artifact.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from speech_enhancement_torch.data.wav_io import write_wav
 from speech_enhancement_torch.device import DeviceLike, module_device, resolve_device
 from speech_enhancement_torch.models.types import SignalSpec
 from speech_enhancement_torch.ops.stft import stft, stft_custom
+from speech_enhancement_torch.parallel import mesh as mesh_lib
 from speech_enhancement_torch.train import checkpoints as ckpt
 from speech_enhancement_torch.train import losses as losses_lib
 from speech_enhancement_torch.train import metrics as metrics_lib
@@ -185,15 +192,6 @@ METRIC_HIGHER_BETTER = {"loss": False, "sisdr": True, "stoi": True, "pesq": True
 DRAIN_EVERY = 64
 
 
-def _check_ported(config) -> None:
-    """Raise for the parts of a config whose slice is not ported yet."""
-    parallel = config.get("parallel") or {}
-    if int(parallel.get("data", 1) or 1) > 1 or bool(parallel.get("multihost", False)):
-        raise NotImplementedError(
-            "data parallelism (parallel.data > 1, parallel.multihost) is not ported yet: "
-            "the parallel/mesh.py slice (torch.distributed) ports it")
-
-
 def _is_primary() -> bool:
     """Process 0 writes every artifact when several processes share a run."""
     dist = torch.distributed
@@ -205,13 +203,16 @@ class Solver:
 
     ``model`` is the module ``build_model`` returns, on ``device`` (default
     ``cuda``, which raises without a card); ``spec`` its ``SignalSpec``. The
-    loaders are ``data/loader.py``'s.
+    loaders are ``data/loader.py``'s. ``mesh`` (``parallel/mesh.py:
+    make_mesh``) makes the train steps data parallel.
     """
 
     def __init__(self, config, model: nn.Module, spec: SignalSpec, train_loader,
                  val_loader, test_loader=None, run_dir: Optional[str] = None,
-                 device: DeviceLike = None):
-        _check_ported(config)
+                 device: DeviceLike = None, mesh: Optional[mesh_lib.Mesh] = None):
+        self.mesh = mesh
+        if mesh is not None:
+            mesh_lib.check_batch_size(mesh, int(config.solver.batch_size))
         self.device = resolve_device(device)
         model_dev = module_device(model)
         if model_dev is not None and model_dev.type != self.device.type:
@@ -276,6 +277,13 @@ class Solver:
             self._resume_checkpoint(resume)
         elif preload:
             self._preload_model(preload)
+        # the module the train steps run (DDP under a group) and the running
+        # statistics averaged after each; built after the weights are final
+        self._train_model, self._stats = model, []
+        if mesh is not None:
+            mesh_lib.fold_in_data_index(model, int(config.get("seed", 10)), mesh)
+            self._train_model = mesh_lib.shard_train_step(model, mesh)
+            self._stats = mesh_lib.batch_stats(model)
 
     # ------------------------------------------------------------------ setup
     def _make_writer(self):
@@ -329,7 +337,10 @@ class Solver:
             nonlocal total, count
             if not pending:
                 return
-            fetched = torch.stack([torch.stack(p) for p in pending]).float().cpu().numpy()
+            stacked = torch.stack([torch.stack(p) for p in pending]).float()
+            if self.mesh is not None:
+                mesh_lib.pmean_([stacked[:, 0]])  # the loss over the data shards
+            fetched = stacked.cpu().numpy()
             first = self._global_step - len(pending) + 1
             for offset, (loss_value, grad_norm) in enumerate(fetched):
                 loss_value = float(loss_value)
@@ -348,9 +359,10 @@ class Solver:
             # steps_per_call: the JAX package's scan of N steps, a plain loop here
             for mixture, sources in chunk:
                 loss, grad_norm = train_step(
-                    self.model, self.spec, self.optimizer, mixture, sources, self.loss_name,
-                    use_pit=self.use_pit and not self.pit_discard_compat,
+                    self._train_model, self.spec, self.optimizer, mixture, sources,
+                    self.loss_name, use_pit=self.use_pit and not self.pit_discard_compat,
                     device=self.device, model_config=self.model_config)
+                mesh_lib.pmean_(self._stats)
                 self._global_step += 1
                 pending.append((loss, grad_norm))
             chunk.clear()
@@ -358,7 +370,11 @@ class Solver:
         for step, batch in enumerate(loader):
             if limit is not None and step >= limit:
                 break
-            chunk.append((batch["mixture"], batch["sources"]))
+            mixture, sources = batch["mixture"], batch["sources"]
+            if self.mesh is not None:
+                mixture = mesh_lib.shard_batch(self.mesh, mixture)
+                sources = mesh_lib.shard_batch(self.mesh, sources)
+            chunk.append((mixture, sources))
             steps += 1
             if len(chunk) == self.steps_per_call:
                 run_chunk()

@@ -1195,3 +1195,16 @@ def test_ha_chain_on_card_matches_cpu(card, tmp_path):
     for key in ("haspi_enhance", "hasqi_enhance", "haspi_mixture", "hasqi_mixture"):
         assert 0.0 < scores[1][key] < 1.0, (key, scores[1][key])
         assert abs(scores[0][key] - scores[1][key]) <= 1e-4 * scores[1][key], key
+
+
+def test_dp_dryrun_over_nccl_launches_the_attention_kernels(card):
+    """parallel/dryrun.py on every card (one NCCL rank each): one
+    data-parallel step of DCCRN, Demucs and Sepformer; Sepformer's
+    attention kernels run under DDP on every rank."""
+    from speech_enhancement_torch.parallel.dryrun import FAMILIES, dryrun_multichip
+
+    ranks = dryrun_multichip(torch.cuda.device_count(), timeout=300)
+    for found in ranks:
+        assert all(found[f]["step"] == 1 and np.isfinite(found[f]["loss"]) for f in FAMILIES)
+        assert found["launches"]["mha_fwd"] > 0 and found["launches"]["mha_bwd"] > 0
+        assert found["sepformer"] == ranks[0]["sepformer"]

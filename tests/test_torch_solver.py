@@ -311,15 +311,19 @@ def test_preload_port_checkpoint_and_bare_state_dict(trained, vbd_root, tmp_path
         main(cfg, mode=None, device="cpu")
 
 
-def test_main_raises_for_what_is_not_ported(vbd_root, tmp_path):
+def test_main_raises_for_what_is_not_ported(vbd_root, tmp_path, monkeypatch):
     cfg = _config(vbd_root, str(tmp_path))
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(cfg, mode=None)
     with pytest.raises(ValueError, match="unknown mode"):
         main(cfg, mode="serve", device="cpu")
+    # data parallelism needs a process group: without torchrun's environment
+    # or a coordinator address main() names the launcher
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     for parallel in ({"data": 2}, {"multihost": True}):
-        with pytest.raises(NotImplementedError, match="parallel/mesh.py slice"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             main(cfg.merged({"parallel": parallel}), mode=None, device="cpu")
 
 
