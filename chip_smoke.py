@@ -84,8 +84,16 @@ step each of DCCRN ``cbn_fold``, DCCRN ``use_fused_blocks`` and CRN with
 ``fused_rnn`` at full width held to JAX's ``pmean`` computed in one
 process; and ``parallel/dryrun.py:dryrun_multichip`` over NCCL (Sepformer's
 attention kernels among its families); every rank reports its own
-launches (``dp_phase``). Each phase's seconds and the total are
-logged. It imports nothing of JAX.
+launches (``dp_phase``). The ``remat`` phase trains DCCRN at
+``bench.py``'s point with remat off and under the JAX policies "",
+"conv_out,cbn_stats" and "cbn_stats", and Sepformer at B 4 off, "" and
+"attn_out", each first step and DCCRN's running statistics held to remat
+off's (``remat_phase``); the ``tools`` phase, last, lays out a synthetic
+48 kHz VoiceBank-DEMAND tree with ``tools/prepare_data.py``, trains a
+DCCRN epoch on it through the CLI and enhances one file with
+``tools/inference.py``, each a subprocess that must import nothing of JAX
+(``tools_phase``). Each phase's seconds and the total are logged. It
+imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
 ``{"kernels": [...]}`` (per kernel: launches on its own path, max abs error
@@ -732,11 +740,13 @@ def flat_grads(model) -> torch.Tensor:
 
 
 def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRAIN_OPTIM,
-               steps=TRAIN_STEPS, detail=True, falling=True, **overrides) -> dict:
+               steps=TRAIN_STEPS, detail=True, falling=True, first_step=None,
+               **overrides) -> dict:
     """``steps`` steps of train_step with the config at ``path`` at full
     width (PIT over the speakers of a multi-speaker model), the loss
     falling step to step unless ``falling`` is off (dropout); then, with
-    ``detail``, one step split by CUDA events and one under the profiler."""
+    ``detail``, one step split by CUDA events and one under the profiler.
+    ``first_step(model)``, if given, is called after the first step."""
     cfg, model, spec = load_model(dev, path, **overrides)
     opt = get_optimizer(Config(optim), model.parameters())
     model_config = cfg.model if spec.domain == "stft" else None
@@ -755,6 +765,8 @@ def train_path(tag, dev, wire_m, wire_s, path=CONFIG, loss_name="mse", optim=TRA
         times.append(time.perf_counter() - t0)
         if step == 0:
             first_grads = flat_grads(model)  # clipped in place if norm > clip: same direction
+            if first_step is not None:
+                first_step(model)
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if not all(np.isfinite(losses + norms)):
@@ -2636,7 +2648,7 @@ def ha_phase(dev) -> dict:
             items.append((clean, clean + 0.003 * noise, clean + 0.001 * noise,
                           f"{scene}_mix_CH1"))
         listener = card.listeners_for_scene(scenes[0])[0]
-        card._amplify(card._resample(items[0][2]), listener)  # first-call set-up
+        card.amplify_for_listener(card._resample(items[0][2]), listener)  # first-call set-up
         torch.cuda.synchronize()
         with ThreadPoolExecutor(max_workers=3) as pool:
             futures = ([pool.submit(host.score, *item) for item in items]
@@ -2663,7 +2675,7 @@ def ha_phase(dev) -> dict:
         the three resamples, both signals' chains, the copies to the host."""
         card._resample(clean).cpu()
         for signal in (enhanced, mixture):
-            card._amplify(card._resample(signal), listener).cpu()
+            card.amplify_for_listener(card._resample(signal), listener).cpu()
 
     chain_ms = []
     for _ in range(5):
@@ -2676,7 +2688,7 @@ def ha_phase(dev) -> dict:
                                                 np.asarray(listener["audiogram_cfs"], float)),
                             sig[:1])
     parts = {"resample": cuda_ms(lambda: card._resample(enhanced), reps=10),
-             "amplify (one listener, both ears)": cuda_ms(lambda: card._amplify(sig, listener),
+             "amplify (one listener, both ears)": cuda_ms(lambda: card.amplify_for_listener(sig, listener),
                                                           reps=10),
              "compressor (one ear)": cuda_ms(lambda: card.compressor(x), reps=10)}
     result = {"scores_card": [{k: c[k] for k in keys} for c in on_card],
@@ -3293,6 +3305,211 @@ def cli_phase(dev) -> dict:
     return result
 
 
+# -- rematerialisation with named saves, and the user tools -----------------------
+
+# DCCRN at bench.py's point (cbn_fold), remat off and three JAX policies; a
+# name Sepformer tags and one it does not, at its config's B 4
+DCCRN_REMAT = (("off", {}), ("remat ''", {"remat": True, "remat_policy": ""}),
+               ("conv_out,cbn_stats", {"remat": True, "remat_policy": "conv_out,cbn_stats"}),
+               ("cbn_stats", {"remat": True, "remat_policy": "cbn_stats"}))
+# (tag, overrides, mha_fwd launches a step): "" recomputes every layer's
+# attention in backward, attn_out keeps it (counted on the CPU:
+# tests/test_torch_remat.py)
+SEP_REMAT = (("off", {}, SEP_LAUNCHES), ("remat ''", {"remat": True}, 2 * SEP_LAUNCHES),
+             ("attn_out", {"remat": True, "remat_policy": "attn_out"}, SEP_LAUNCHES))
+REMAT_STATS_RTOL = 0.01  # running statistics after one step: 1% of each buffer's scale
+
+
+def running_stats(model) -> dict:
+    return {k: b.detach().float().clone() for k, b in model.named_buffers()
+            if k.rsplit(".", 1)[-1] in ("RMr", "RMi", "RVrr", "RVri", "RVii")}
+
+
+def remat_phase(dev) -> dict:
+    """DCCRN at bench.py's point (configs/dccrn_vbd.yaml, bf16, unfused
+    ``cbn_fold``, B 128 x 4 s, MSE, Adam 3e-4, clip 5, int16 wire): three
+    train steps each with remat off, ``remat_policy`` "", "conv_out,
+    cbn_stats" and "cbn_stats"; step ms (median of steps 2 to 3), peak GiB
+    and the STFT and mask-E launches a step (once each: both stay outside
+    the recomputed blocks). Each first step against remat off's (the
+    first-step bounds), and the running statistics after it within
+    REMAT_STATS_RTOL of each buffer's scale (a second momentum update on
+    the recompute would move them by 0.1 of their change). Then Sepformer
+    at its config's B 4: remat off, "" and "attn_out", with the attention
+    kernels' launches a step."""
+    wire_m, wire_s = train_batch(int(load_config(CONFIG).dset.sample_rate))
+    rows, grads, stats = {}, {}, {}
+    for tag, options in DCCRN_REMAT:
+        rows[tag], grads[tag] = train_path(
+            f"dccrn remat {tag}", dev, wire_m, wire_s, detail=False, cbn_fold=True,
+            first_step=lambda model, tag=tag: stats.__setitem__(tag, running_stats(model)),
+            **options)
+        expect_launches(f"dccrn remat {tag}", rows[tag]["launches"], stft=TRAIN_STEPS,
+                        mask_e=TRAIN_STEPS)
+    result = {"dccrn": {}, "sepformer": {}}
+    for tag, row in rows.items():
+        entry = remat_entry(row)
+        if tag != "off":
+            entry["first_step"] = first_step_agreement(f"dccrn remat {tag}", rows["off"],
+                                                       grads["off"], row, grads[tag],
+                                                       "remat vs remat off")
+            worst = max(((stats[tag][k] - v).abs().max() / v.abs().max()).item()
+                        for k, v in stats["off"].items())
+            if not np.isfinite(worst) or worst > REMAT_STATS_RTOL:
+                fail(f"dccrn remat {tag}: running statistics after one step {worst:.2e} of a "
+                     f"buffer's scale from remat off's (bound {REMAT_STATS_RTOL})")
+            entry["stats_rel"] = worst
+        result["dccrn"][tag] = entry
+        log(f"remat dccrn {tag}: step {entry['step_ms']:.1f} ms, peak {entry['peak_gib']:.2f} "
+            f"GiB, launches a step {entry['launches_a_step']}"
+            + (f", statistics {entry['stats_rel']:.2e} of their scale from remat off's"
+               if tag != "off" else ""))
+
+    mixture, sources = sepformer_train_batch()
+    sep_rows, sep_grads = {}, {}
+    for tag, options, fwd in SEP_REMAT:
+        sep_rows[tag], sep_grads[tag] = train_path(
+            f"sepformer remat {tag}", dev, mixture, sources, SEP_CONFIG, "si-sdr", SEP_OPTIM,
+            detail=False, **options)
+        expect_launches(f"sepformer remat {tag}", sep_rows[tag]["launches"],
+                        mha_fwd=fwd * TRAIN_STEPS, mha_bwd=SEP_LAUNCHES * TRAIN_STEPS)
+        entry = remat_entry(sep_rows[tag])
+        if tag != "off":
+            entry["first_step"] = first_step_agreement(
+                f"sepformer remat {tag}", sep_rows["off"], sep_grads["off"], sep_rows[tag],
+                sep_grads[tag], "remat vs remat off", REMAT_MIN_COSINE)
+        result["sepformer"][tag] = entry
+        log(f"remat sepformer {tag}: step {entry['step_ms']:.1f} ms, peak "
+            f"{entry['peak_gib']:.2f} GiB, launches a step {entry['launches_a_step']}")
+    return result
+
+
+def remat_entry(row: dict) -> dict:
+    """A ``train_path`` row's step ms, peak and launches a step."""
+    return {"step_ms": row["median_step_ms_2_to_3"], "peak_gib": row["peak_mem_gib"],
+            "launches_a_step": {k: v / TRAIN_STEPS for k, v in row["launches"].items() if v}}
+
+
+TOOLS_UTTERANCES = 24  # 48 kHz, 4 to 5 s each; 16 of them train
+# runs a port module as ``python -m`` would, then prints the kernels'
+# launches in the process and whether anything of JAX was imported
+TOOL_RUNNER = (
+    "import json, runpy, sys\n"
+    "module = sys.argv[1]\n"
+    "sys.argv = [module] + sys.argv[2:]\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+    "from speech_enhancement_torch.kernels import counted\n"
+    "print('TOOL ' + json.dumps({'launches': {k: w.launches for k, w in counted().items()},\n"
+    "    'jax_modules': sorted(m for m in sys.modules if m.split('.')[0] in\n"
+    "                          ('jax', 'jaxlib', 'flax', 'speech_enhancement_tpu'))}))\n")
+
+
+def run_tool(module: str, *args: str, timeout: int = 300) -> dict:
+    """``python -m module args`` through TOOL_RUNNER in a subprocess on the
+    card; fails unless it exits 0 with no JAX module imported. Returns its
+    seconds, stdout and launches."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TOOL_RUNNER, module, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t
+    found = re.search(r"^TOOL (.*)$", proc.stdout, re.M)
+    if proc.returncode != 0 or not found:
+        fail(f"tools: {module} {' '.join(args)} exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    report = json.loads(found.group(1))
+    if report["jax_modules"]:
+        fail(f"tools: {module} imported {report['jax_modules']}")
+    return {"seconds": seconds, "stdout": proc.stdout, "launches": report["launches"]}
+
+
+def tools_phase(dev) -> dict:
+    """The user tools on the card, each a subprocess that imports no JAX: a
+    synthetic 48 kHz VoiceBank-DEMAND tree (data/synthetic.py) laid out at
+    16 kHz by ``python -m speech_enhancement_torch.tools.prepare_data vbd
+    --sample-rate 16000`` (resampled on the card); one DCCRN epoch of 2
+    steps at the full width of configs/dccrn_vbd.yaml on the prepared tree
+    through ``python -m speech_enhancement_torch``; then ``python -m
+    speech_enhancement_torch.tools.inference`` on one noisy file of it.
+    Checks the prepared tree (every file at 16 kHz, ceil(n / 3) samples),
+    the enhanced file (finite, the input's length, within the bf16 serving
+    bounds of ``evaluate_utterance`` on the run's checkpoint in this
+    process) and that the STFT and mask-E kernels launched in training and
+    in the tool."""
+    import shutil
+    import tempfile
+
+    from speech_enhancement_torch.config import save_yaml
+    from speech_enhancement_torch.data.synthetic import make_voicebank_demand
+    from speech_enhancement_torch.data.wav_io import read_wav
+    from speech_enhancement_torch.train import checkpoints as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="se_torch_tools_")
+    try:
+        src = make_voicebank_demand(os.path.join(tmp, "vbd48"), n_utterances=TOOLS_UTTERANCES,
+                                    sr=48000, min_seconds=4.0, max_seconds=5.0, seed=SEED)
+        dst = os.path.join(tmp, "vbd16")
+        prep = run_tool("speech_enhancement_torch.tools.prepare_data", "vbd", "--src", src,
+                        "--dst", dst, "--sample-rate", "16000")
+        summary = json.loads(re.search(r'^(\{"dataset".*)$', prep["stdout"], re.M).group(1))
+        if summary.get("noisy_trainset_wav") != TOOLS_UTTERANCES or summary.get(
+                "clean_trainset_wav") != TOOLS_UTTERANCES:
+            fail(f"tools: prepare_data summary {summary}")
+        for kind in ("noisy", "clean"):
+            for name in sorted(os.listdir(os.path.join(src, f"{kind}_trainset_wav"))):
+                wav48, _ = read_wav(os.path.join(src, f"{kind}_trainset_wav", name))
+                wav16, sr = read_wav(os.path.join(dst, f"{kind}_trainset_wav", name))
+                if sr != 16000 or wav16.shape[-1] != -(-wav48.shape[-1] // 3) or not (
+                        np.isfinite(wav16).all()):
+                    fail(f"tools: prepared {kind} {name}: {sr} Hz, {wav16.shape}")
+
+        cfg = cli_config(CONFIG, tmp, dst, epochs=1, all_steps=False, total_steps=2,
+                         **{"validation.total_steps": 1, "test.total_steps": 0,
+                            "test.num_show": 0})
+        cfg.dset.split = [0.7, 0.15, 0.15]
+        yaml_path = os.path.join(tmp, "dccrn_tools.yaml")
+        save_yaml(cfg, yaml_path)
+        run_dir = os.path.join(tmp, "run")
+        train = run_tool("speech_enhancement_torch", "--config", yaml_path, "--mode", "train",
+                         "--run-dir", run_dir)
+        if ckpt.latest_checkpoint(run_dir) is None:
+            fail(f"tools: the training run wrote no checkpoint: {train['stdout'][-1500:]}")
+
+        noisy = os.path.join(dst, "noisy_trainset_wav", "p000_000.wav")
+        clean = os.path.join(dst, "clean_trainset_wav", "p000_000.wav")
+        out = os.path.join(tmp, "enhanced.wav")
+        infer = run_tool("speech_enhancement_torch.tools.inference", "--run-dir", run_dir,
+                         "--wav", noisy, "--out", out, "--clean", clean)
+        got, sr = read_wav(out)
+        wav, _ = read_wav(noisy)
+        if sr != 16000 or got.shape != wav.shape or not np.isfinite(got).all():
+            fail(f"tools: enhanced {got.shape} at {sr} Hz for an input of {wav.shape}")
+        scores = re.search(r"scores vs clean: (.*)$", infer["stdout"], re.M)
+        if not scores:
+            fail(f"tools: inference printed no scores: {infer['stdout'][-800:]}")
+        model, spec = build_model(load_config(os.path.join(run_dir, "config.yaml")).model,
+                                  device=dev)
+        model.load_state_dict(ckpt.model_state(ckpt.latest_checkpoint(run_dir)))
+        direct = evaluate_utterance(wav[None], model, spec, cfg, device=dev)[0]
+        agreement = agree([got], [direct], "tools: inference tool vs evaluate_utterance")[0]
+        for what, row in (("training", train), ("inference", infer)):
+            if min(row["launches"]["stft"], row["launches"]["mask_e"]) == 0:
+                fail(f"tools: {what} did not launch the STFT and mask-E kernels: "
+                     f"{row['launches']}")
+        result = {"prepare_s": prep["seconds"], "train_s": train["seconds"],
+                  "inference_s": infer["seconds"], "scores": scores.group(1),
+                  "agreement": agreement,
+                  "launches": {what: {k: v for k, v in row["launches"].items() if v}
+                               for what, row in (("prepare", prep), ("train", train),
+                                                 ("inference", infer))}}
+        log(f"tools: prepare_data {prep['seconds']:.1f} s ({2 * TOOLS_UTTERANCES} files 48 -> "
+            f"16 kHz), train {train['seconds']:.1f} s, inference {infer['seconds']:.1f} s "
+            f"(subprocesses, with their start); scores {result['scores']}; the tool vs "
+            f"evaluate_utterance {agreement}; launches {result['launches']}; no JAX imported")
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is False; this smoke test needs a CUDA card")
@@ -3349,6 +3566,7 @@ def main() -> int:
     phase("mel_rnn", mel_rnn_phase, dev)
     phase("rnn_stft_mask_train", rnn_stft_mask_train_phase, dev)
     phase("sepformer_options", sepformer_options_phase, dev)
+    remat = phase("remat", remat_phase, dev)
     phase("dccrn_real_lstm", dccrn_real_lstm_phase, dev)
     phase("zoo", zoo_phase, dev)
     stream = phase("stream", stream_phase, dev)
@@ -3356,6 +3574,7 @@ def main() -> int:
         phase("ha", ha_phase, dev)
     dp = phase("dp", dp_phase, dev)
     phase("cli", cli_phase, dev)
+    tools = phase("tools", tools_phase, dev)
     log(f"seconds by phase {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; total "
         f"{time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the path that is its own: the unfused serve
@@ -3379,10 +3598,20 @@ def main() -> int:
             entry["stream_launches"] = streamed
         # the data-parallel runs' launches, each rank's own (dp_phase)
         entry["dp_launches"] = dp["launches"][name]
+        # a train step's under each remat policy (remat_phase), and the user
+        # tools' subprocesses (tools_phase)
+        family = "sepformer" if name.startswith("mha") else "dccrn"
+        remat_a_step = {tag: row["launches_a_step"].get(name, 0)
+                        for tag, row in remat[family].items()}
+        if any(remat_a_step.values()):
+            entry["remat_launches_a_step"] = {f"{family} {k}": v for k, v in remat_a_step.items()}
+        used = {what: n.get(name, 0) for what, n in tools["launches"].items() if n.get(name)}
+        if used:
+            entry["tools_launches"] = used
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "stream_launches", "dp_launches",
-            "cases")
+            "remat_launches_a_step", "tools_launches", "cases")
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

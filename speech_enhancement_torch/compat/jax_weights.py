@@ -25,6 +25,16 @@ RNN and Linear wrappers: ``{intra,inter}_mdl.mdl.rnn.*_l{k}[_reverse]`` and
 reference keys no survey records, takes the flax names: ``lstm_{k}`` as
 ``lstm.{k}.*_l0`` and ``transform`` as ``transform.*``.
 
+The library blocks that no model builds (``ops/norms.py``'s ``EMA`` and
+``PCEN``; ``ops/complex_ops.py``'s ``ComplexConv2d``,
+``ComplexConvTranspose2d``, ``ComplexDense`` and
+``ComplexBatchNormStacked``) have no reference keys either: their
+converters (``ema_state_from_jax``, ``pcen_state_from_jax``,
+``complex_conv_state_from_jax``, ``complex_dense_state_from_jax``,
+``complex_bn_stacked_state_from_jax``) name the flax modules, with torch's
+layouts, and the stacked complex BN's affine under
+``ComplexBatchNorm``'s names.
+
 ``dccrn_state_from_jax(params, batch_stats)`` takes the flax variable trees
 (as numpy arrays, or anything ``np.asarray`` reads) and returns a
 ``state_dict`` for :class:`speech_enhancement_torch.models.dccrn.DCCRN`.
@@ -521,4 +531,55 @@ def demucs_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
             _gn(sd, f"{d}.{j + 1}", params[f"dec_{i}_norm"])
     if "lstm" in params:
         _demucs_blstm(sd, "lstm", params["lstm"])
+    return sd
+
+
+# -- the library blocks no model builds ----------------------------------------
+
+def ema_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``EMA`` -> ``ops.norms.EMA``: ``alpha_logit`` when trainable (a
+    fixed EMA has no parameter)."""
+    return OrderedDict((k, _t(v)) for k, v in params.items())
+
+
+def pcen_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``PCEN`` -> ``ops.norms.PCEN``: ``alpha``, ``delta``, ``root`` and,
+    with ``spcen``, ``smoother.alpha_logit``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key in ("alpha", "delta", "root"):
+        sd[key] = _t(params[key])
+    for key, value in params.get("smoother", {}).items():
+        sd[f"smoother.{key}"] = _t(value)
+    return sd
+
+
+def complex_conv_state_from_jax(params: Mapping, transposed: bool = False
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``ComplexConv2d`` (or, ``transposed``, ``ComplexConvTranspose2d``)
+    -> the port's: ``conv_r`` / ``conv_i`` as torch Conv2d [out, in, kh, kw]
+    (ConvTranspose2d [in, out, kh, kw], flipped in space)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in ("conv_r", "conv_i"):
+        (_tconv_k if transposed else _conv_k)(sd, name, params[name])
+    return sd
+
+
+def complex_dense_state_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``ComplexDense`` -> the port's ``dense_r`` / ``dense_i`` Linears."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in ("dense_r", "dense_i"):
+        _linear(sd, name, params[name])
+    return sd
+
+
+def complex_bn_stacked_state_from_jax(params: Mapping, batch_stats: Mapping
+                                      ) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``ComplexBatchNormStacked`` -> the port's: the affine under
+    ``Wrr``...``Bi``, the running ``mean2`` and ``var2`` [2C] and ``vri``
+    [C] under their flax names."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for jax_key, torch_key in _CBN_PARAMS:
+        sd[torch_key] = _t(params[jax_key])
+    for key in ("mean2", "var2", "vri"):
+        sd[key] = _t(batch_stats[key])
     return sd

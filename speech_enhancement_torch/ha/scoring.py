@@ -114,12 +114,14 @@ class ClarityScorer:
             return [self.listeners[i] for i in ids if i in self.listeners]
         return list(self.listeners.values())
 
-    def _amplify(self, signal: torch.Tensor, listener: dict) -> torch.Tensor:
-        """[C, T] f64 at the HA rate on the device -> [2, T'] f32 on the
-        device, through NAL-R + compressor."""
-        if signal.shape[0] == 1:
-            signal = signal.expand(2, signal.shape[-1])
-        out = amplify(signal[None, None, :2], self.enhancer, self.compressor, listener,
+    def amplify_for_listener(self, signal, listener: dict) -> torch.Tensor:
+        """[C, T] at the HA rate (an array or a tensor) -> [2, T'] f32 on the
+        device, through NAL-R + compressor in f64; a mono input is
+        broadcast to both ears."""
+        sig = torch.as_tensor(signal, device=self.device).double()
+        if sig.shape[0] == 1:
+            sig = sig.expand(2, sig.shape[-1])
+        out = amplify(sig[None, None, :2], self.enhancer, self.compressor, listener,
                       soft_clip=self.soft_clip)
         return out[0, 0].float()
 
@@ -178,8 +180,8 @@ class ClarityScorer:
         amplified = None
         for listener in self.listeners_for_scene(scene):
             t0 = time.perf_counter()
-            amp_enh = self._amplify(enhanced_rs, listener).cpu().numpy()
-            amp_mix = self._amplify(mixture_rs, listener).cpu().numpy()
+            amp_enh = self.amplify_for_listener(enhanced_rs, listener).cpu().numpy()
+            amp_mix = self.amplify_for_listener(mixture_rs, listener).cpu().numpy()
             t1 = time.perf_counter()
             amplified = amp_enh
             h_e, q_e = self._haspi_hasqi(clean_rs, amp_enh, self.fs, listener)

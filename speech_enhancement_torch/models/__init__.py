@@ -7,7 +7,7 @@ crn, unet, dcunet, dccrn, wav-unet, demucs, conv-tasnet, sepformer and tcn.
 from __future__ import annotations
 
 import inspect
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Type
 
 import torch
 from torch import nn
@@ -37,6 +37,23 @@ def model_names() -> list:
     return sorted(_REGISTRY)
 
 
+def get_model_class(name: str) -> Type[nn.Module]:
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown model {name!r}; options: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def param_count(module: nn.Module) -> int:
+    """Parameters of ``module`` (running statistics excluded, as the JAX
+    ``param_count`` counts the ``params`` tree)."""
+    return sum(p.numel() for p in module.parameters())
+
+
+def param_megabytes(module: nn.Module) -> float:
+    """The parameters' bytes / 1e6, as in JAX."""
+    return sum(p.numel() * p.element_size() for p in module.parameters()) / 1e6
+
+
 def build_model(model_config, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> Tuple[nn.Module, SignalSpec]:
     """Instantiate a model from the config bag on ``device``, in eval mode.
@@ -48,10 +65,7 @@ def build_model(model_config, device: DeviceLike = None,
     the same seed gives the same weights on every device.
     """
     dev = resolve_device(device)
-    name = str(model_config.name)
-    if name not in _REGISTRY:
-        raise ValueError(f"unknown model {name!r}; options: {sorted(_REGISTRY)}")
-    cls = _REGISTRY[name]
+    cls = get_model_class(str(model_config.name))
     fields = set(inspect.signature(cls).parameters) - {"generator"}
     cfg = model_config.to_dict() if hasattr(model_config, "to_dict") else dict(model_config)
     kwargs = {k: v for k, v in cfg.items() if k in fields}

@@ -27,7 +27,7 @@ def _smoke(name: str, config_path: Optional[str], seconds: float, device: str) -
     import torch
 
     from speech_enhancement_torch.config import Config, load_config
-    from speech_enhancement_torch.models import build_model
+    from speech_enhancement_torch.models import build_model, param_count, param_megabytes
     from speech_enhancement_torch.ops.stft import stft_custom
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -52,9 +52,8 @@ def _smoke(name: str, config_path: Optional[str], seconds: float, device: str) -
         inputs = stft_custom(inputs, model_cfg)
     with torch.inference_mode():
         out = model(inputs)
-    n_params = sum(p.numel() for p in model.parameters())
     print(f"{name:16s} in {tuple(inputs.shape)} -> out {tuple(out.shape)}  "
-          f"params {n_params / 1e6:8.3f}M = {n_params * 4 / 1e6:8.3f} MB  "
+          f"params {param_count(model) / 1e6:8.3f}M = {param_megabytes(model):8.3f} MB  "
           f"domain={spec.domain} monarch={spec.monarch} device={out.device}", flush=True)
 
 

@@ -35,6 +35,20 @@ reads it, and the decoder's skip join is never stored. In train() mode the
 blocks are autograd Functions whose backward runs the backward kernels.
 The parameters are the same either way.
 
+``remat=True`` recomputes each unfused encoder and decoder block in the
+backward pass, one block at a time (``torch.utils.checkpoint``,
+non-reentrant), as the JAX ``nn.remat`` does. ``remat_policy`` is JAX's
+named-saves policy: a comma-separated list of the names the model tags,
+each kept rather than recomputed. ``conv_out`` is a block's (transposed)
+conv output before complex BN: the conv runs in a region of its own whose
+output is kept, so backward recomputes only its input's cast (and the
+decoder's skip join), not the conv. ``cbn_stats`` are complex BN's batch
+moments (``ops/complex_ops.py:_Moments``), reused by the recompute instead
+of reduced again. A name the model does not tag saves nothing. The running
+statistics move once a step either way. The STFT and the mask head stay
+outside the recomputed blocks; the fused path ignores both options, as in
+JAX.
+
 Precision policy (``dtype="bfloat16"``): convs and LSTM in bf16, complex
 BN statistics in f32, mask head and synthesis in f32. Parameters stay f32.
 
@@ -57,6 +71,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from speech_enhancement_torch.kernels.conv_block import (conv_block_train, deconv_block_train,
                                                          fused_conv_block, fused_deconv_block,
@@ -67,7 +82,8 @@ from speech_enhancement_torch.models.types import WAV_MONO, SignalSpec
 from speech_enhancement_torch.ops.complex_conv import (complex_cat, complex_conv, complex_deconv,
                                                        conv_block_kernel, deconv_block_kernel,
                                                        hwio_from_conv, hwio_from_deconv)
-from speech_enhancement_torch.ops.complex_ops import ComplexBatchNorm, stats_from_partials
+from speech_enhancement_torch.ops.complex_ops import (ComplexBatchNorm, NamedSaves,
+                                                      stats_from_partials)
 from speech_enhancement_torch.ops.frame import frame_signal, overlap_add
 from speech_enhancement_torch.ops.rnn import ComplexLSTM, Linear, LSTMLayer, lecun_normal
 
@@ -157,9 +173,26 @@ def _split(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return x2[:, :n], x2[:, n:]
 
 
-def _cbn_prelu(cbn: ComplexBatchNorm, prelu: _PReLU, y2: torch.Tensor) -> torch.Tensor:
-    zr, zi = cbn(*_split(y2))
+def _cbn_prelu(cbn: ComplexBatchNorm, prelu: _PReLU, y2: torch.Tensor,
+               saves: Optional[NamedSaves] = None) -> torch.Tensor:
+    zr, zi = cbn(*_split(y2), saves=saves)
     return prelu(torch.cat([zr, zi], dim=1))
+
+
+def recompute_block(conv, post, inputs: Sequence[torch.Tensor], names: frozenset
+                    ) -> torch.Tensor:
+    """``post(conv(*inputs), saves)`` recomputed in backward under JAX's
+    named saves ``names`` (see the module note): with ``conv_out`` the conv
+    is a checkpointed region of its own whose output autograd keeps, else
+    one region runs both. ``post`` is None for a block without complex BN.
+    """
+    if post is None:
+        return checkpoint(conv, *inputs, use_reentrant=False)
+    saves = NamedSaves(names)
+    if "conv_out" in names:
+        y2 = checkpoint(conv, *inputs, use_reentrant=False)
+        return checkpoint(lambda y: post(y, saves.run()), y2, use_reentrant=False)
+    return checkpoint(lambda *a: post(conv(*a), saves.run()), *inputs, use_reentrant=False)
 
 
 class _ComplexConvBlock(nn.Sequential):
@@ -182,12 +215,19 @@ class _ComplexConvBlock(nn.Sequential):
         kernel = conv_block_kernel(conv.real_conv.weight, conv.imag_conv.weight)
         return kernel, torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
 
-    def forward(self, x2: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
-        """``time_mode`` as :func:`ops.complex_conv.complex_conv` takes it."""
+    def conv(self, x2: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        """The complex conv (the ``conv_out`` save point); ``time_mode`` as
+        :func:`ops.complex_conv.complex_conv` takes it."""
         kernel, bias = self.block_kernel()
-        y2 = complex_conv(x2.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype),
-                          time_mode)
-        return _cbn_prelu(self[1], self[2], y2)
+        return complex_conv(x2.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype),
+                            time_mode)
+
+    def post(self, y2: torch.Tensor, saves: Optional[NamedSaves] = None) -> torch.Tensor:
+        """Complex BN and PReLU on the conv output."""
+        return _cbn_prelu(self[1], self[2], y2, saves)
+
+    def forward(self, x2: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        return self.post(self.conv(x2, time_mode))
 
 
 class _ComplexDeconvBlock(nn.Sequential):
@@ -213,17 +253,27 @@ class _ComplexDeconvBlock(nn.Sequential):
         return kernel, torch.cat([conv.real_conv.bias, conv.imag_conv.bias])
 
     def forward(self, x2: torch.Tensor, skip2: torch.Tensor) -> torch.Tensor:
-        return self.deconv(complex_cat(x2.to(self.dtype), skip2.to(self.dtype)))
+        return self.post(self.conv_skip(x2, skip2))
+
+    def conv_skip(self, x2: torch.Tensor, skip2: torch.Tensor) -> torch.Tensor:
+        """:meth:`conv` on the trunk and the skip joined (:func:`complex_cat`)."""
+        return self.conv(complex_cat(x2.to(self.dtype), skip2.to(self.dtype)))
+
+    def conv(self, joined: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
+        """The complex transposed conv on the joined [trunk; skip] channels
+        (the ``conv_out`` save point); ``time_mode`` as
+        :func:`ops.complex_conv.complex_deconv` takes it."""
+        kernel, bias = self.block_kernel()
+        return complex_deconv(joined.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype),
+                              time_mode)
+
+    def post(self, y2: torch.Tensor, saves: Optional[NamedSaves] = None) -> torch.Tensor:
+        """Complex BN and PReLU on the conv output (the last block has none)."""
+        return y2 if self.last else _cbn_prelu(self[1], self[2], y2, saves)
 
     def deconv(self, joined: torch.Tensor, time_mode: str = "offline") -> torch.Tensor:
-        """The block on the joined [trunk; skip] channels (:func:`complex_cat`);
-        ``time_mode`` as :func:`ops.complex_conv.complex_deconv` takes it."""
-        kernel, bias = self.block_kernel()
-        y2 = complex_deconv(joined.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype),
-                            time_mode)
-        if self.last:
-            return y2
-        return _cbn_prelu(self[1], self[2], y2)
+        """The block on the joined channels."""
+        return self.post(self.conv(joined, time_mode))
 
 
 class _FusedSkip(NamedTuple):
@@ -257,6 +307,8 @@ class DCCRN(nn.Module):
         use_stft_kernel: bool = True,
         use_mask_kernel: bool = True,
         use_fused_blocks: bool = False,
+        remat: bool = False,
+        remat_policy: str = "",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -276,6 +328,9 @@ class DCCRN(nn.Module):
         self.use_mask_kernel = use_mask_kernel
         self.use_fused_blocks = use_fused_blocks
         self.use_clstm = use_clstm
+        # the names kept under remat (None: no remat); "".split(",") names
+        # nothing the model tags, as JAX's empty policy saves nothing
+        self.remat_names = frozenset(str(remat_policy).split(",")) if remat else None
         self.compute_dtype = _DTYPES[dtype]
 
         fwd, inv, window = _stft_bases(win_len, fft_len)
@@ -336,9 +391,16 @@ class DCCRN(nn.Module):
         x2 = torch.stack([real[:, 1:], imag[:, 1:]], dim=1)  # DC bin dropped
         skips = []
         for block in self.encoder:
-            x2 = block(x2)
+            if self._recomputing():
+                x2 = recompute_block(block.conv, block.post, (x2,), self.remat_names)
+            else:
+                x2 = block(x2)
             skips.append(x2)
         return skips
+
+    def _recomputing(self) -> bool:
+        """remat applies to a train() forward under a gradient."""
+        return self.remat_names is not None and self.training and torch.is_grad_enabled()
 
     def recur(self, x2) -> torch.Tensor:
         """Complex LSTM bottleneck on [B, 2C, D, T] -> same shape (fused:
@@ -366,7 +428,12 @@ class DCCRN(nn.Module):
         if self.use_fused_blocks:
             return self._decode_fused(x2, skips)
         for idx, block in enumerate(self.decoder):
-            x2 = block(x2, skips[len(skips) - 1 - idx])
+            skip2 = skips[len(skips) - 1 - idx]
+            if self._recomputing():
+                x2 = recompute_block(block.conv_skip, None if block.last else block.post,
+                                     (x2, skip2), self.remat_names)
+            else:
+                x2 = block(x2, skip2)
         x2 = x2.float()  # mask head and synthesis in f32
         mask_real = F.pad(x2[:, 0], (0, 0, 1, 0))
         mask_imag = F.pad(x2[:, 1], (0, 0, 1, 0))

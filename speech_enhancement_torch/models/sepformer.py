@@ -22,7 +22,16 @@ transformer stack by a bidirectional LSTM stack (the plain loop in the
 input's dtype, as the JAX block passes neither ``fused`` nor a dtype) and a
 Linear back to the model width. ``remat=True`` recomputes each transformer
 layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
-which runs the attention kernel's forward again.
+which runs the attention kernel's forward again. ``remat_policy`` names
+what JAX's ``save_only_these_names`` keeps: with ``attn_out`` in it, each
+layer's attention (projections, core, out projection) runs outside the
+recomputed regions, so autograd keeps its output and residuals and the
+kernel's forward runs once a step; the LayerNorms and the feed-forward
+around it are recomputed (pre-norm: ``norm1`` in a region of its own,
+then the residual, ``norm2`` and the FFN in a second). Selective
+activation checkpointing cannot express this: it sorts saves by
+dispatcher op, and the attention kernel launches through ctypes, which
+the dispatcher never sees. A name the model does not tag saves nothing.
 
 Precision (``dtype="bfloat16"``) follows the flax module layer by layer:
 dense layers, convolutions and attention compute in bf16 and return bf16;
@@ -288,12 +297,25 @@ class TransformerEncoderLayer(nn.Module):
     def _attend(self, x: torch.Tensor, pos_embs: Optional[torch.Tensor]) -> torch.Tensor:
         return self.self_att(x, pos_embs) if self.relative else self.self_att(x)
 
-    def forward(self, x: torch.Tensor, pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def finish(self, x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+        """The layer after its attention output (JAX's ``attn_out``): the
+        residual, the norms and the feed-forward."""
         if self.norm_before:
-            x = x + self._attend(self.norm1(x), pos_embs)
+            x = x + attn_out
             return x + self.pos_ffn(self.norm2(x))
-        x = self.norm1(x + self._attend(x, pos_embs))
+        x = self.norm1(x + attn_out)
         return self.norm2(x + self.pos_ffn(x))
+
+    def forward(self, x: torch.Tensor, pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.finish(x, self._attend(self.norm1(x) if self.norm_before else x, pos_embs))
+
+    def recomputed(self, x: torch.Tensor, pos_embs: Optional[torch.Tensor],
+                   names: frozenset) -> torch.Tensor:
+        """The layer recomputed in backward under the named saves ``names``."""
+        if "attn_out" not in names:
+            return checkpoint(self, x, pos_embs, use_reentrant=False)
+        h = checkpoint(self.norm1, x, use_reentrant=False) if self.norm_before else x
+        return checkpoint(self.finish, x, self._attend(h, pos_embs), use_reentrant=False)
 
 
 class _TransformerEncoder(nn.Module):
@@ -312,14 +334,17 @@ class SBTransformerBlock(nn.Module):
     """A stack of pre-norm transformer layers over [B', L, N]: sinusoidal
     positions added in the input's dtype (or, with RelPosMHAXL, relative
     embeddings handed to every layer), the layers, each recomputed in the
-    backward pass with ``remat``, then the final LayerNorm (eps 1e-6)."""
+    backward pass with ``remat`` under the named saves of
+    ``remat_policy``, then the final LayerNorm (eps 1e-6)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, d_ffn: int = 2048,
                  fused_attention: bool = True, dtype: torch.dtype = torch.float32,
-                 attention_type: str = "regularMHA", remat: bool = False, generator=None):
+                 attention_type: str = "regularMHA", remat: bool = False,
+                 remat_policy: str = "", generator=None):
         super().__init__()
         self.relative = attention_type == "RelPosMHAXL"
         self.remat = remat
+        self.remat_names = frozenset(str(remat_policy).split(","))
         self.mdl = _TransformerEncoder(num_layers, d_model, nhead, d_ffn, fused_attention, dtype,
                                        attention_type, generator)
 
@@ -332,8 +357,7 @@ class SBTransformerBlock(nn.Module):
             x = x + pos.to(device=x.device, dtype=x.dtype)
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.mdl.layers:
-            x = (checkpoint(layer, x, pos_embs, use_reentrant=False) if remat
-                 else layer(x, pos_embs))
+            x = layer.recomputed(x, pos_embs, self.remat_names) if remat else layer(x, pos_embs)
         return self.mdl.norm(x)
 
 
@@ -378,7 +402,7 @@ class DualComputationBlock(nn.Module):
                  intra_block: str = "transformer", inter_block: str = "transformer",
                  rnn_hidden: int = 256, rnn_bidirectional: bool = True,
                  attention_type: str = "regularMHA", fused_attention: bool = True,
-                 remat: bool = False, skip_around_intra: bool = True,
+                 remat: bool = False, remat_policy: str = "", skip_around_intra: bool = True,
                  dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
         self.skip_around_intra = skip_around_intra
@@ -392,7 +416,7 @@ class DualComputationBlock(nn.Module):
             return SBTransformerBlock(layers, d_model, nhead, dffn,
                                       fused_attention=fused_attention, dtype=dtype,
                                       attention_type=attention_type, remat=remat,
-                                      generator=generator), None
+                                      remat_policy=remat_policy, generator=generator), None
 
         self.intra_mdl, self.intra_linear = path(intra_block, intra_layers, intra_nhead,
                                                  intra_dffn)
@@ -477,11 +501,6 @@ class Sepformer(nn.Module):
             raise ValueError(f"unknown attention_type {attention_type!r}")
         if {intra_block, inter_block} - {"transformer", "rnn"}:
             raise ValueError(f"unknown block types {intra_block!r}, {inter_block!r}")
-        if remat_policy:
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} names JAX checkpoint names (jax.checkpoint_"
-                "policies.save_only_these_names), which torch.utils.checkpoint has no "
-                "counterpart of: remat=True recomputes a whole layer; leave remat_policy empty")
         if fused_attention not in (True, False, "force"):
             raise ValueError(f"fused_attention takes True, False or 'force', got "
                              f"{fused_attention!r}")
@@ -502,7 +521,8 @@ class Sepformer(nn.Module):
                             intra_block=intra_block, inter_block=inter_block,
                             rnn_hidden=rnn_hidden, rnn_bidirectional=rnn_bidirectional,
                             attention_type=attention_type, fused_attention=self.fused_attention,
-                            remat=remat, skip_around_intra=masknet_extraskipconnection)
+                            remat=remat, remat_policy=remat_policy,
+                            skip_around_intra=masknet_extraskipconnection)
         self.masknet = _MaskNet(encoder_out_nchannels, masknet_numspks, masknet_numlayers,
                                 block_kwargs, self.compute_dtype, generator)
         self.decoder = nn.ConvTranspose1d(encoder_out_nchannels, encoder_in_nchannels,

@@ -3,14 +3,16 @@ speech_enhancement_tpu/ops/norms.py).
 
 ``GlobalLayerNorm`` (Sepformer's and Conv-TasNet's gLN),
 ``ChannelwiseLayerNorm`` (Conv-TasNet's cLN), ``CumulativeLayerNorm``
-(causal cLN) and ``ema_scan`` (the DNN's EMA smoothers). Channels-last,
-as in the JAX package; the functional forms take the affine parameters
-so a model can keep them under the reference's names and layouts.
-``EMA`` and ``PCEN`` have no user in the port.
+(causal cLN), ``ema_scan`` (the DNN's EMA smoothers), and the library
+blocks no model of either package builds: ``EMA`` (a fixed or learnable
+smoother) and ``PCEN`` (trainable (s)PCEN). Channels-last, as in the JAX
+package; the functional forms take the affine parameters so a model can
+keep them under the reference's names and layouts.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -114,3 +116,47 @@ def ema_scan(x: torch.Tensor, alpha, dim: int = 1) -> torch.Tensor:
         coeff = torch.cat([coeff[:shift], coeff[shift:] * coeff[:-shift]])
         shift *= 2
     return val.movedim(0, dim)
+
+
+class EMA(nn.Module):
+    """EMA smoother over [B, T, C] (:func:`ema_scan` along time) with a fixed
+    coefficient ``alpha`` or, with ``trainable``, a learnable per-channel
+    one: ``sigmoid(alpha_logit)``, the logit starting at ``log(alpha / (1 -
+    alpha))`` taken in f32 as JAX takes it."""
+
+    def __init__(self, channels: int, alpha: float = 0.1, trainable: bool = False):
+        super().__init__()
+        self.alpha = alpha
+        self.trainable = trainable
+        if trainable:
+            logit0 = float(np.log(np.float32(alpha / (1.0 - alpha))))
+            self.alpha_logit = nn.Parameter(torch.full((channels,), logit0))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        alpha = torch.sigmoid(self.alpha_logit) if self.trainable else self.alpha
+        return ema_scan(x, alpha, dim=1)
+
+
+class PCEN(nn.Module):
+    """Per-channel energy normalisation over [B, T, C] magnitudes:
+    ``(x * exp(-alpha * log(floor + EMA(x))) + delta) ** (1 / max(root,
+    1e-3)) - delta ** (1 / max(root, 1e-3))``, with trainable per-channel
+    ``alpha``, ``delta`` and ``root`` and the smoother ``smoother`` (an
+    :class:`EMA` of ``smooth_coef``, learnable per channel with ``spcen``);
+    the JAX ``PCEN`` operation for operation."""
+
+    def __init__(self, channels: int, alpha: float = 0.96, delta: float = 2.0,
+                 root: float = 2.0, smooth_coef: float = 0.04, floor: float = 1e-6,
+                 spcen: bool = False):
+        super().__init__()
+        self.floor = floor
+        self.alpha = nn.Parameter(torch.full((channels,), alpha))
+        self.delta = nn.Parameter(torch.full((channels,), delta))
+        self.root = nn.Parameter(torch.full((channels,), root))
+        self.smoother = EMA(channels, smooth_coef, trainable=spcen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        smoother = self.smoother(x)
+        one_over_root = 1.0 / torch.clamp(self.root, min=1e-3)
+        smooth = torch.exp(-self.alpha * torch.log(self.floor + smoother))
+        return (x * smooth + self.delta) ** one_over_root - self.delta ** one_over_root

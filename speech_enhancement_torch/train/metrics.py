@@ -2,8 +2,9 @@
 reference: src/metric.py).
 
 SI-SDR here is host-side numpy, bit-matching the reference's
-metric.py:92-123 convention — note it does *not* zero-mean (the device-side
-SI-SDR is the loss module's ``si_snr``). STOI is a
+metric.py:92-123 convention — note it does *not* zero-mean; ``si_sdr_torch``
+is the same convention on the tensors' device (the loss module's
+``si_snr`` is the zero-meaned loss). STOI is a
 native numpy implementation (:mod:`.stoi`). PESQ prefers the conformant
 ITU ``pesq`` / ``pypesq`` wheels when installed (the reference's path,
 src/metric.py:3,147-196) and otherwise falls back to the in-repo native
@@ -21,6 +22,7 @@ import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 from scipy.linalg import solve_toeplitz
 from scipy.signal import fftconvolve
 
@@ -75,6 +77,17 @@ def si_sdr_numpy(reference: np.ndarray, estimation: np.ndarray) -> float:
     noise = estimation - projection
     ratio = np.sum(projection**2, axis=-1) / (np.sum(noise**2, axis=-1) + _EPS)
     return float(10 * np.log10(np.mean(ratio) + _EPS))
+
+
+def si_sdr_torch(reference: torch.Tensor, estimation: torch.Tensor) -> torch.Tensor:
+    """SI-SDR over [..., T] on the tensors' device (JAX ``si_sdr_jax``'s
+    convention: not zero-meaned, eps 1e-12); a 0-dim tensor."""
+    ref_energy = torch.sum(reference**2, dim=-1, keepdim=True)
+    scaling = torch.sum(estimation * reference, dim=-1, keepdim=True) / (ref_energy + 1e-12)
+    projection = scaling * reference
+    noise = estimation - projection
+    ratio = torch.sum(projection**2, dim=-1) / (torch.sum(noise**2, dim=-1) + 1e-12)
+    return 10.0 * torch.log10(torch.mean(ratio) + 1e-12)
 
 
 def sdr(reference: np.ndarray, estimation: np.ndarray, sr: int = 16000, n_taps: int = 512) -> float:

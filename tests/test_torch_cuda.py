@@ -1020,6 +1020,61 @@ def test_sepformer_remat_on_card_relaunches_the_forward(card):
     torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-7)
 
 
+def test_sepformer_attn_out_on_card_launches_the_forward_once(card):
+    """remat_policy="attn_out" keeps each layer's attention output: two
+    mha_fwd and two mha_bwd launches for two layers (no recompute of the
+    kernel), and the step of remat=False."""
+    from speech_enhancement_torch.kernels.attention import mha_bwd, mha_fwd
+    rng = np.random.default_rng(13)
+    sources = (0.5 * rng.standard_normal((2, 2, 2, 2000))).astype(np.float32)
+    mixture = sources.sum(axis=1)
+    optim = {"optim": "adam", "lr": 1.5e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+    results = []
+    for options in ({}, {"remat": True, "remat_policy": "attn_out"}):
+        model, spec = build_model(Config(dict(SMALL_SEPFORMER, **options)), device=card,
+                                  generator=torch.Generator().manual_seed(4))
+        opt = get_optimizer(Config(optim), model.parameters())
+        before = (mha_fwd.launches, mha_bwd.launches)
+        loss, _ = train_step(model, spec, opt, mixture, sources, "si-sdr", use_pit=True,
+                             device=card)
+        results.append(((mha_fwd.launches - before[0], mha_bwd.launches - before[1]),
+                        float(loss), torch.cat([p.grad.flatten() for p in model.parameters()])))
+    assert results[0][0] == results[1][0] == (2, 2)
+    np.testing.assert_allclose(results[1][1], results[0][1], rtol=1e-6)
+    torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("policy", ["", "conv_out", "cbn_stats", "conv_out,cbn_stats"])
+@pytest.mark.parametrize("fold", [False, True])
+def test_small_dccrn_remat_on_card_matches_remat_off(card, fold, policy):
+    """DCCRN remat on the card: the STFT and mask-E kernels launch once a
+    step (outside the recomputed blocks), and the loss, gradients and
+    running statistics are remat off's (a conv bias that complex BN
+    follows has a zero true gradient: its residue at the global scale)."""
+    rng = np.random.default_rng(15)
+    mixture = (0.5 * rng.standard_normal((2, 1, 8000))).astype(np.float32)
+    sources = (0.5 * rng.standard_normal((2, 1, 1, 8000))).astype(np.float32)
+    optim = {"optim": "adam", "lr": 3e-4, "beta1": 0.9, "beta2": 0.999, "clip_grad": 5}
+    results = []
+    for options in ({}, {"remat": True, "remat_policy": policy}):
+        model, spec = build_model(Config(dict(SMALL, cbn_fold=fold, **options)), device=card,
+                                  generator=torch.Generator().manual_seed(6))
+        opt = get_optimizer(Config(optim), model.parameters())
+        before = (stft_kernel.launches, mask_e_kernel.launches)
+        loss, _ = train_step(model, spec, opt, mixture, sources, "mse", device=card)
+        results.append(((stft_kernel.launches - before[0], mask_e_kernel.launches - before[1]),
+                        float(loss), {k: p.grad.clone() for k, p in model.named_parameters()},
+                        {k: b.clone() for k, b in model.named_buffers() if ".R" in k}))
+    assert results[0][0] == results[1][0] == (1, 1)
+    np.testing.assert_allclose(results[1][1], results[0][1], rtol=1e-6)
+    for got, want in ((results[1][2], results[0][2]), (results[1][3], results[0][3])):
+        scale = max(float(v.abs().max()) for v in want.values())
+        for key, value in want.items():
+            residue = key.endswith("_conv.bias") and not key.startswith("decoder.2.")
+            leaf = scale if residue else float(value.abs().max())
+            torch.testing.assert_close(got[key], value, rtol=1e-5, atol=1e-6 * leaf, msg=key)
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_small_dccrn_real_lstm_on_card_matches_cpu(card, fused):
     """use_clstm=False on both execution paths: the card vs the CPU path

@@ -223,7 +223,7 @@ def test_clarity_scorer_matches_jax(tmp_path, rng):
     enhanced = (clean + 0.002 * rng.standard_normal(clean.shape)).astype(np.float32)
     listener = port.listeners_for_scene("S00002")[0]
     np.testing.assert_allclose(
-        port._amplify(port._resample(enhanced), listener).numpy(),
+        port.amplify_for_listener(port._resample(enhanced), listener).numpy(),
         ref.amplify_for_listener(ref._resample(enhanced), listener), rtol=0, atol=1e-5)
     got = port.score(clean, mixture, enhanced, "S00002_mix_CH1")
     want = ref.score(clean, mixture, enhanced, "S00002_mix_CH1")

@@ -246,17 +246,30 @@ def test_sepformer_evaluate_utterance_matches_jax():
 def test_options_of_later_slices_raise(option):
     """The four options are ported (tests/test_torch_sepformer_options.py):
     each builds, and what stays refused beside it raises: an unknown
-    attention or block type, and a JAX ``remat_policy``."""
+    attention or block type. JAX's ``remat_policy`` is accepted: with
+    ``attn_out``, and with a name the model does not tag, a train() loss
+    and its gradients equal remat off's to 1e-6."""
     with torch.inference_mode():
         assert port_sep.Sepformer(**SMALL, **option)(torch.zeros(1, 2, 800)).shape == (
             1, 2, 2, 800)
     key, value = next(iter(option.items()))
-    if key == "remat":
-        with pytest.raises(NotImplementedError, match="remat_policy"):
-            port_sep.Sepformer(**SMALL, remat=True, remat_policy="attn_out")
-    else:
+    if key != "remat":
         with pytest.raises(ValueError, match="unknown"):
             port_sep.Sepformer(**SMALL, **{key: value + "_x"})
+        return
+    mixture = torch.from_numpy(_mixture(66, samples=800))
+    results = []
+    for policy in (None, "attn_out", "not_a_tag"):
+        model = port_sep.Sepformer(**SMALL, remat=policy is not None, remat_policy=policy or "",
+                                   generator=torch.Generator().manual_seed(9)).train()
+        loss = (model(mixture) ** 2).mean()
+        loss.backward()
+        results.append((loss.item(), [p.grad for p in model.parameters()]))
+    for loss, grads in results[1:]:
+        np.testing.assert_allclose(loss, results[0][0], rtol=1e-6)
+        for got, want in zip(grads, results[0][1]):
+            torch.testing.assert_close(got, want, rtol=1e-6,
+                                       atol=1e-6 * (want.abs().max().item() + 1e-12))
 
 
 def test_build_model_builds_the_shipped_config_at_full_width():

@@ -189,6 +189,28 @@ def test_remat_gives_the_same_step(extra):
 
 
 def test_remat_policy_has_no_torch_counterpart():
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        port_sep.Sepformer(**SMALL, remat=True, remat_policy="attn_out")
-    port_sep.Sepformer(**SMALL, remat=True, remat_policy="")
+    """JAX's named saves have their counterpart: ``remat_policy="attn_out"``
+    keeps each layer's attention output and gives remat off's train step
+    (loss, grad norm, gradients to 1e-6); a name the model does not tag
+    saves nothing, so it gives exactly the values of ``""``."""
+    mixture, sources = _batch(64)
+    results = {}
+    for key, options in (("off", {}), ("attn_out", {"remat": True, "remat_policy": "attn_out"}),
+                         ("", {"remat": True, "remat_policy": ""}),
+                         ("untagged", {"remat": True, "remat_policy": "conv_out"})):
+        model = port_sep.Sepformer(fused_attention=True, **SMALL, **options,
+                                   generator=torch.Generator().manual_seed(4))
+        opt = get_optimizer(Config(OPTIM), model.parameters())
+        loss, norm = train_step(model, model.SPEC, opt, mixture, sources, "si-sdr",
+                                use_pit=True, device="cpu")
+        results[key] = (loss.item(), norm.item(),
+                        {k: p.grad.clone() for k, p in model.named_parameters()})
+    loss_a, norm_a, grads_a = results["off"]
+    loss_b, norm_b, grads_b = results["attn_out"]
+    np.testing.assert_allclose([loss_b, norm_b], [loss_a, norm_a], rtol=1e-6)
+    for key, grad in grads_a.items():
+        torch.testing.assert_close(grads_b[key], grad, rtol=1e-6, atol=1e-6 * (
+            grad.abs().max().item() + 1e-12), msg=key)
+    assert results["untagged"][:2] == results[""][:2]
+    for key, grad in results[""][2].items():
+        assert torch.equal(results["untagged"][2][key], grad), key

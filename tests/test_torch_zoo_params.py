@@ -1,5 +1,6 @@
 """Every shipped config builds in the port with the JAX package's parameter
-count, and the zoo's smoke CLI runs.
+count (``param_count`` / ``param_megabytes`` against JAX's), and the zoo's
+smoke CLI runs.
 
 The JAX count comes from ``jax.eval_shape(model.init, ...)`` (traced, not
 compiled) on the input ``python -m speech_enhancement_tpu.models`` feeds
@@ -19,10 +20,13 @@ import pytest
 import torch
 
 from speech_enhancement_torch.config import load_config
-from speech_enhancement_torch.models import build_model, model_names
+from speech_enhancement_torch.models import (build_model, model_names, param_count,
+                                             param_megabytes)
 from speech_enhancement_tpu.config import load_config as jax_load_config
 from speech_enhancement_tpu.models import build_model as jax_build_model
 from speech_enhancement_tpu.models import model_names as jax_model_names
+from speech_enhancement_tpu.models import param_count as jax_param_count
+from speech_enhancement_tpu.models import param_megabytes as jax_param_megabytes
 from speech_enhancement_tpu.ops.stft import stft_custom as jax_stft_custom
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,6 +70,8 @@ def test_shipped_config_has_the_jax_parameter_count(name):
     want = sum(math.prod(s.shape) for s in jax.tree_util.tree_leaves(shapes))
     port, port_spec = build_model(load_config(path).model, device="cpu")
     assert sum(p.numel() for p in port.parameters()) == want == PARAMS[name]
+    assert param_count(port) == jax_param_count(shapes) == want
+    assert param_megabytes(port) == pytest.approx(jax_param_megabytes(shapes), rel=1e-12)
     assert port_spec == type(port).SPEC and port_spec.domain == spec.domain
     assert (port_spec.multi_speaker, port_spec.monarch) == (spec.multi_speaker, spec.monarch)
 
