@@ -92,7 +92,12 @@ off's (``remat_phase``); the ``tools`` phase, last, lays out a synthetic
 48 kHz VoiceBank-DEMAND tree with ``tools/prepare_data.py``, trains a
 DCCRN epoch on it through the CLI and enhances one file with
 ``tools/inference.py``, each a subprocess that must import nothing of JAX
-(``tools_phase``). Each phase's seconds and the total are logged. It
+(``tools_phase``). The ``wide_lstm`` phase runs the LSTM kernels' wide
+design (the widths whose weight slice outgrows a block's shared memory) on
+its model paths: CRN at its class default f32 (1792 units) and Demucs with
+its bottleneck BLSTM (``lstm_layers: 2``, 2048 units, f32), a 10 s request
+and a train step each against the plain loop at the f32 bounds; the LSTM
+phase holds and times both kernels at those shapes (``LSTM_WIDE_TAGS``). Each phase's seconds and the total are logged. It
 imports nothing of JAX.
 
 Output: progress lines, then on the line before the last one JSON object
@@ -1005,6 +1010,20 @@ def agree(outs, refs, what: str) -> list:
     return agreement
 
 
+def f32_serve_agreement(tag: str, outs, refs) -> list:
+    """Every sample of each served request within F32_ATOL of its
+    reference's peak."""
+    agreement = []
+    for out, ref in zip(outs, refs):
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            fail(f"{tag}: bad output, shape {out.shape}, finite {np.isfinite(out).all()}")
+        agreement.append({"max_err": float(np.abs(out - ref).max()),
+                          "peak": float(np.abs(ref).max())})
+    if any(a["max_err"] > F32_ATOL * a["peak"] for a in agreement):
+        fail(f"{tag}: kernel path vs plain path beyond {F32_ATOL} of the peak: {agreement}")
+    return agreement
+
+
 COUNTED = counted()
 
 
@@ -1202,9 +1221,9 @@ def lstm_work(steps, batch, hidden, backward=False, itemsize=2):
 
 def lstm_bound(row, backward=False):
     """The case's least time: FLOPs at the design's peak rate (bf16 tensor
-    cores; f32: three TF32 products a product for the split-f32 design, f32
-    FMA for the first) against its bytes at the HBM rate. An f32 case
-    reports both bounds."""
+    cores; f32: three TF32 products a product for the split-f32 and wide
+    designs, f32 FMA for the first) against its bytes at the HBM rate. An
+    f32 case reports both bounds."""
     bf16 = row["dtype"] == "bfloat16"
     flops, nbytes = lstm_work(row["steps"], row["batch"], row["hidden"], backward,
                               2 if bf16 else 4)
@@ -1215,7 +1234,7 @@ def lstm_bound(row, backward=False):
     else:
         row["split_f32_bound_ms"] = max(3 * flops / TF32_FLOPS_PER_S * 1e3, row["bytes_bound_ms"])
         row["f32_fma_bound_ms"] = max(flops / F32_FLOPS_PER_S * 1e3, row["bytes_bound_ms"])
-        row["flops_bound_ms"] = (3 * flops / TF32_FLOPS_PER_S if row["design"] == "f32"
+        row["flops_bound_ms"] = (3 * flops / TF32_FLOPS_PER_S if row["design"] in ("f32", "wide")
                                  else flops / F32_FLOPS_PER_S) * 1e3
     row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
     row["bound_by"] = "operations" if row["flops_bound_ms"] > row["bytes_bound_ms"] else "bytes"
@@ -1271,7 +1290,17 @@ LSTM_FWD_CASES = (
     ("demucs serve, layer 4, bf16", 124, 192, 256, torch.bfloat16, False, 256),
     ("demucs serve, layer 5, bf16", 30, 192, 512, torch.bfloat16, False, 512),
     ("demucs train, layer 4, bf16", 124, 8, 256, torch.bfloat16, False, 256),
-    ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512))
+    ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512),
+    # the wide design (LSTM_WIDE_TAGS): CRN at its class default f32, and
+    # Demucs's bottleneck BLSTM (configs/demucs_clarity.yaml with
+    # lstm_layers: 2; 2048 units, T 30 for a 4 s window), f32 on its path
+    # and bf16 beside it
+    ("crn serve, f32", 501, 192, 1792, torch.float32, False, 1792),
+    ("crn train, f32", 501, 16, 1792, torch.float32, False, 1792),
+    ("demucs bottleneck serve", 30, 192, 2048, torch.float32, False, 2048),
+    ("demucs bottleneck serve, reversed", 30, 192, 2048, torch.float32, True, 2048),
+    ("demucs bottleneck serve, bf16", 30, 192, 2048, torch.bfloat16, False, 2048),
+    ("demucs bottleneck serve, bf16, reversed", 30, 192, 2048, torch.bfloat16, True, 2048))
 LSTM_BWD_CASES = (
     ("crn train", 501, 16, 1792, torch.bfloat16, False, 1792),
     ("mel-rnn train", 501, 16, 256, torch.float32, False, 257),
@@ -1280,7 +1309,22 @@ LSTM_BWD_CASES = (
     ("demucs train, layer 4", 124, 8, 256, torch.float32, False, 256),
     ("demucs train, layer 5", 30, 8, 512, torch.float32, False, 512),
     ("demucs train, layer 4, bf16", 124, 8, 256, torch.bfloat16, False, 256),
-    ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512))
+    ("demucs train, layer 5, bf16", 30, 8, 512, torch.bfloat16, False, 512),
+    ("crn train, f32", 501, 16, 1792, torch.float32, False, 1792),
+    ("demucs bottleneck train", 30, 8, 2048, torch.float32, False, 2048),
+    ("demucs bottleneck train, reversed", 30, 8, 2048, torch.float32, True, 2048),
+    ("demucs bottleneck train, bf16", 30, 8, 2048, torch.bfloat16, False, 2048))
+# the cases whose slice no other design holds: they must take the wide
+# design (and have no first design to time beside it)
+LSTM_WIDE_TAGS = frozenset(case[0] for case in LSTM_FWD_CASES + LSTM_BWD_CASES
+                           if case[0].startswith(("crn serve, f32", "crn train, f32",
+                                                  "demucs bottleneck")))
+
+
+def lstm_want_design(tag: str, bf16: bool) -> str:
+    """The design a case of LSTM_*_CASES must take: the wide design for this
+    slice's widths, else bf16's ring and f32's split-f32 design."""
+    return "wide" if tag in LSTM_WIDE_TAGS else "ring" if bf16 else "f32"
 
 
 def lstm_fwd_first(x_proj, w_hh, h0, c0, reverse):
@@ -1305,8 +1349,9 @@ def lstm_fwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim) -
     """The forward kernel vs its plain version at one shape, timed beside
     cuDNN's torch.nn.LSTM forward on the layer's input (more work: it
     includes the input projection; a reversed case against the same
-    unidirectional call). bf16 takes the ring, f32 the split-f32 design;
-    an f32 case also times the first design in the same run (w_hhᵀ 4
+    unidirectional call). bf16 takes the ring, f32 the split-f32 design,
+    the widths of LSTM_WIDE_TAGS the wide design; an f32 case of the
+    split-f32 design also times the first design in the same run (w_hhᵀ 4
     bytes off a 16-byte address takes it)."""
     bf16 = dtype == torch.bfloat16
     args = lstm_inputs(gen, steps, batch, hidden, dtype, dev)
@@ -1315,12 +1360,12 @@ def lstm_fwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim) -
     want = lstm_k.fused_lstm_plain(*args, reverse)
     torch.cuda.synchronize()
     err, mean = lstm_close(got, want, bf16)
-    if design != ("ring" if bf16 else "f32") or not np.isfinite(mean):
+    if design != lstm_want_design(tag, bf16) or not np.isfinite(mean):
         fail(f"lstm_fwd ({tag}, {design}) disagrees with plain: max abs err {err}, mean {mean} "
              + (f"(bounds |d| <= {LSTM_RTOL:g}|ref| + {LSTM_ATOL:g}, mean {LSTM_MEAN:g})" if bf16
                 else f"(bound |d| <= {LSTM_F32_TOL:g}(1 + |ref|))"))
     first = {}
-    if not bf16:
+    if design == "f32":
         if lstm_k.lstm_fwd_design(dtype, hidden, batch, aligned=False)[0] != "first":
             fail("lstm_fwd: an unaligned w_hhᵀ does not take the first design")
         first_err, _ = lstm_close(lstm_fwd_first(*args, reverse), want, bf16)
@@ -1349,7 +1394,7 @@ def lstm_fwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim) -
         f"plain {row['plain_ms']:.3f} ms, cuDNN "
         f"nn.LSTM forward ({in_dim} -> {hidden}) {library:.3f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-        + ("" if bf16 else f"; the first design in the same run {row['first_design_ms']:.3f} ms")
+        + (f"; the first design in the same run {row['first_design_ms']:.3f} ms" if first else "")
         + lstm_f32_bounds(row))
     return row
 
@@ -1386,10 +1431,10 @@ def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
     rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
            for g, w in zip(got, want)]
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-    # the ring design is what the bf16 cases of the earlier paths take (the
-    # Demucs bf16 shapes, on no path, take whichever the plan picks), the
-    # split-f32 design every f32 case
-    want_design = "f32" if not bf16 else design if tag.startswith("demucs") else "ring"
+    # the Demucs DConv bf16 shapes, on no path, take whichever the plan
+    # picks; every other case the design lstm_want_design names
+    dconv_bf16 = bf16 and tag.startswith("demucs") and tag not in LSTM_WIDE_TAGS
+    want_design = design if dconv_bf16 else lstm_want_design(tag, bf16)
     if design != want_design or not max(rel) <= tol:
         fail(f"lstm_bwd {tag} ({design}) disagrees with plain: dgates, dh0, dc0 {rel} of their "
              f"largest (bound {tol:g})")
@@ -1443,15 +1488,17 @@ def lstm_bwd_case(dev, gen, tag, steps, batch, hidden, dtype, reverse, in_dim,
 
 def lstm_kernel_phase(dev) -> dict:
     """Both LSTM kernels vs their plain versions on the card at every case
-    of LSTM_FWD_CASES / LSTM_BWD_CASES (T 501), the first designs timed
-    beside the others at CRN's bf16 training shape (the backward) and at
-    every f32 case (both), and a small f32 case with an initial state both
-    ways. The kernel line's numbers are CRN's (serve for the forward, train
-    for the backward); every case rides along."""
+    of LSTM_FWD_CASES / LSTM_BWD_CASES, the first designs timed beside the
+    others at CRN's bf16 training shape (the backward) and at every f32
+    case of the split-f32 design (both), and a small f32 case with an
+    initial state both ways. The kernel line's numbers are CRN's (serve for
+    the forward, train for the backward); every case rides along, the wide
+    design's (LSTM_WIDE_TAGS) among them."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rows = [lstm_fwd_case(dev, gen, *case) for case in LSTM_FWD_CASES]
     bwd_rows = [lstm_bwd_case(dev, gen, *case,
-                              first_design=case[0] == "crn train" or case[4] == torch.float32)
+                              first_design=case[0] not in LSTM_WIDE_TAGS and (
+                                  case[0] == "crn train" or case[4] == torch.float32))
                 for case in LSTM_BWD_CASES]
 
     # small f32 with an initial state, both directions, forward and backward
@@ -1570,10 +1617,7 @@ def serve_family(tag, dev, path, requests, want_launches, stage_fn=None,
     if any(read_launches().values()):
         fail(f"{tag}: the plain path launched a kernel: {read_launches()}")
     if f32:
-        agreement = [{"max_err": float(np.abs(o - r).max()), "peak": float(np.abs(r).max())}
-                     for o, r in zip(outs, plain_outs)]
-        if any(a["max_err"] > F32_ATOL * a["peak"] for a in agreement):
-            fail(f"{tag}: kernel path vs plain path beyond {F32_ATOL} of the peak: {agreement}")
+        agreement = f32_serve_agreement(tag, outs, plain_outs)
     else:
         agreement = agree(outs, plain_outs, f"{tag}: kernel path vs plain path")
     del plain_model
@@ -2412,6 +2456,108 @@ def zoo_phase(dev) -> dict:
     result = {name: zoo_family(dev, name, file, want, requests, batches)
               for name, file, want in ZOO}
     result["models_cli_s"] = zoo_models_cli()
+    return result
+
+
+# -- the wide LSTM design on its model paths -----------------------------------
+
+DEMUCS_CONFIG = os.path.join(ROOT, "configs", "demucs_clarity.yaml")
+DEMUCS_BOTTLENECK = {"lstm_layers": 2, "fused_rnn": True, "dtype": "float32"}
+WIDE_REQUESTS = 2  # 10 s each, the first warms up
+
+
+def f32_step_agreement(tag: str, ref: dict, g_ref, other: dict, g_other) -> dict:
+    """Two f32 paths' first train steps on the same batch and weights: loss
+    and grad norm within LEAF_RTOL relatively, every gradient element within
+    LEAF_RTOL of the largest (the small models' card-vs-CPU bound; a
+    leaf's true gradient may be zero, so the global scale)."""
+    loss_rel = abs(other["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    norm_rel = abs(other["grad_norms"][0] - ref["grad_norms"][0]) / ref["grad_norms"][0]
+    grad_rel = ((g_other - g_ref).abs().max() / g_ref.abs().max()).item()
+    agreement = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_rel": grad_rel}
+    log(f"{tag}: kernels vs plain loop, first step: loss {loss_rel:.2e}, grad norm "
+        f"{norm_rel:.2e} relative, gradients within {grad_rel:.2e} of the largest (bound "
+        f"{LEAF_RTOL} each)")
+    if not max(agreement.values()) <= LEAF_RTOL:
+        fail(f"{tag}: kernels vs plain loop disagree on the first step: {agreement}")
+    return agreement
+
+
+def wide_designs(shapes) -> dict:
+    """The design the library takes at each (kernel, T, B, H) of a model's
+    f32 recurrences; fails unless every one is the wide design."""
+    got = {}
+    for kernel, batch, hidden in shapes:
+        ask = lstm_k.lstm_fwd_design if kernel == "fwd" else lstm_k.lstm_bwd_design
+        got[f"{kernel} B {batch} H {hidden}"] = ask(torch.float32, hidden, batch)[0]
+    if set(got.values()) != {"wide"}:
+        fail(f"the wide design is not what these shapes take: {got}")
+    return got
+
+
+def wide_lstm_phase(dev) -> dict:
+    """Rows 9 and 10's wide design on the model paths that need it, each
+    against the same weights on the plain loop (``fused_rnn = False``) at
+    the f32 bounds: CRN at configs/crn_vbd.yaml's width with its class
+    default ``dtype: float32`` (two LSTM layers of 1792: two forward
+    launches a request, two forward and two backward a step), one warm-up
+    and one 10 s request through evaluate_utterance (B 192) and one train
+    step at B 16; Demucs at configs/demucs_clarity.yaml's width with its
+    bottleneck BLSTM (``lstm_layers: 2``, 2048 units) and ``fused_rnn``, in
+    f32 (so the comparison holds at the f32 bounds; the shipped bf16
+    config's bottleneck is f32 too), one warm-up and one stereo 10 s
+    request (DEMUCS_LAUNCHES + 4 forward launches) and one PIT step at B 8
+    (remat relaunches the DConv BLSTMs' forward: 2 DEMUCS_LAUNCHES + 4
+    forward, DEMUCS_LAUNCHES + 4 backward)."""
+    result = {"designs": {
+        "crn": wide_designs([("fwd", 192, 1792), ("fwd", 16, 1792), ("bwd", 16, 1792)]),
+        "demucs": wide_designs([("fwd", 192, 2048), ("fwd", 8, 2048), ("bwd", 8, 2048)])}}
+    log(f"wide lstm: designs at the models' shapes {result['designs']}")
+    rng = np.random.default_rng(SEED + 60)
+    n = int(SECONDS * 16000)
+    mono = [utterance(rng, n) for _ in range(WIDE_REQUESTS)]
+    stereo = [np.concatenate([utterance(rng, n)[:, 0] for _ in range(2)])[None]
+              for _ in range(WIDE_REQUESTS)]
+    mixture, sources = crn_train_batch()
+    runs = (("crn f32", CRN_CONFIG, mono, 2, (2, 2), {"dtype": "float32"}, (mixture, sources)),
+            ("demucs bottleneck", DEMUCS_CONFIG, stereo, DEMUCS_LAUNCHES + 4,
+             (2 * DEMUCS_LAUNCHES + 4, DEMUCS_LAUNCHES + 4), DEMUCS_BOTTLENECK,
+             stereo_pair_batch(8, SEED + 61)))
+    for tag, path, requests, serve_fwd, (train_fwd, train_bwd), overrides, batch in runs:
+        cfg, model, spec = load_model(dev, path, **overrides)
+        params = sum(p.numel() for p in model.parameters())
+        outs, row = zoo_serve(f"{tag} serve", model, spec, cfg, requests, dev,
+                              want_lstm=serve_fwd)
+        del model
+        torch.cuda.empty_cache()
+        cfg, plain_model, spec = load_model(dev, path, **{**overrides, "fused_rnn": False})
+        reset_launches()
+        plain_outs, plain_times = serve(plain_model, spec, cfg, requests, dev)
+        expect_launches(f"{tag} serve, plain loop", read_launches())
+        del plain_model
+        torch.cuda.empty_cache()
+        row.update(params=params, plain_request_ms=[1e3 * t for t in plain_times],
+                   agreement=f32_serve_agreement(f"{tag} serve", outs, plain_outs))
+        log(f"{tag} serve: {params} parameters; plain loop request ms "
+            f"{[round(x, 1) for x in row['plain_request_ms']]}; kernels vs plain loop "
+            f"{row['agreement']}")
+        row["launches"] = {"lstm_fwd": serve_fwd * len(requests), "lstm_bwd": 0}
+        optim = cfg.optim.to_dict()
+        loss_name = str(cfg.optim.loss)
+        fused, g_fused = train_path(f"{tag}", dev, *batch, path, loss_name=loss_name,
+                                    optim=optim, steps=1, detail=False, **overrides)
+        expect_launches(f"{tag} train", fused["launches"], lstm_fwd=train_fwd,
+                        lstm_bwd=train_bwd)
+        torch.cuda.empty_cache()
+        plain, g_plain = train_path(f"{tag}, plain loop", dev, *batch, path, loss_name=loss_name,
+                                    optim=optim, steps=1, detail=False,
+                                    **{**overrides, "fused_rnn": False})
+        expect_launches(f"{tag} train, plain loop", plain["launches"])
+        result[tag] = {"serve": row, "train": fused, "plain_train": plain,
+                       "first_step_agreement": f32_step_agreement(f"{tag} train", plain, g_plain,
+                                                                  fused, g_fused)}
+        del g_fused, g_plain
+        torch.cuda.empty_cache()
     return result
 
 
@@ -3569,6 +3715,7 @@ def main() -> int:
     remat = phase("remat", remat_phase, dev)
     phase("dccrn_real_lstm", dccrn_real_lstm_phase, dev)
     phase("zoo", zoo_phase, dev)
+    wide = phase("wide_lstm", wide_lstm_phase, dev)
     stream = phase("stream", stream_phase, dev)
     with tf32_allowed():
         phase("ha", ha_phase, dev)
@@ -3608,10 +3755,16 @@ def main() -> int:
         used = {what: n.get(name, 0) for what, n in tools["launches"].items() if n.get(name)}
         if used:
             entry["tools_launches"] = used
+        # the wide design's model paths (wide_lstm_phase): CRN at f32, the
+        # Demucs bottleneck
+        if name in ("lstm_fwd", "lstm_bwd"):
+            entry["wide_launches"] = {f"{tag} {part}": wide[tag][part]["launches"][name]
+                                      for tag in ("crn f32", "demucs bottleneck")
+                                      for part in ("serve", "train")}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "stream_launches", "dp_launches",
-            "remat_launches_a_step", "tools_launches", "cases")
+            "remat_launches_a_step", "tools_launches", "wide_launches", "cases")
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in kernels.values()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

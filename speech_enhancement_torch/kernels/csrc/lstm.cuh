@@ -35,6 +35,9 @@
 // left to bf16 rows that are not 16-byte aligned and to the f32 shapes that
 // no split-f32 plan takes (wider than about 790 units, H % 4 != 0 in the
 // forward, more than 16 x 256 (b, u) pairs a block, unaligned pointers).
+// Where even the first design's slice does not fit beside its staging, the
+// wide designs (namespace wide below: lstm_fwd_wide, lstm_bwd_wide) keep
+// only part of the slice resident and read the rest every step.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -646,5 +649,335 @@ __device__ __forceinline__ const float* partial_row(const unsigned char* smem, c
 }
 
 }  // namespace tc
+
+// -- the wide designs ----------------------------------------------------------
+//
+// lstm_fwd_wide (lstm_fwd.cu) and lstm_bwd_wide (lstm_bwd.cu) take the
+// widths whose slice no other design can hold beside its staging (on 132
+// SMs, f32 from 1152 to 1408 units by batch, bf16 from 1920; the whole
+// card's opt-in shared
+// memory, 30.7 MB, is less than w_hh itself there: 51.4 MB in f32 at H
+// 1792). The block keeps the first res_rounds rounds of its slice's K range
+// resident in shared memory and reads the rest from device memory (L2) every
+// step, through the same two stage slots that bring in h_prev (forward) or
+// dgates[t] (backward). Everything else is as in the first design: U units
+// a block, one block an SM, one grid barrier a step, the cooperative launch,
+// the f32 carries, the gate order and every output's layout.
+//
+// A step's product takes the slice's rows as the mma's M and the batch as
+// N: the forward's m16 tile m is gate m and its rows are the units (row
+// gate * U + u of the slice), the backward's one tile holds the U units.
+// The eight warps split into wn along the batch, each holding ntw n8 tiles
+// of a chunk of nb columns, and wk along K, each taking every wk-th k step
+// of a round; their f32 partials meet in shared memory in a fixed order
+// (split 1, 2, ... added to split 0's registers), and split 0's threads run
+// the pointwise part from their accumulators. A round is kc = kstep x wk x s
+// of K (s = 4, 2 or 1 k steps a warp: the largest whose two slots and the
+// partials take at most half of the shared memory). Both slots are filled
+// by 16-byte cp.async.cg copies (zero past B and K; element loads through
+// L2 where rows are not 16-byte aligned) a round ahead of the products, one
+// block barrier on each side of a round's products.
+//   bf16: mma.sync m16n8k16, f32 accumulation, as the rings.
+//   f32:  mma.sync m16n8k8 in split-f32 (3xTF32, as namespace tc): both
+//         operands are split into big and small TF32 parts in registers as
+//         they are loaded, so the resident slice stays raw f32 (a pre-split
+//         slice takes twice the bytes).
+// Rows are padded by 16 bytes (pitches of 4 mod 8 words), so the fragments'
+// 32-bit loads hit 32 distinct banks. Each block walks the rounds from its
+// own starting round (blockIdx.x % kr), so the blocks do not all ask L2 for
+// the same lines of h_prev at once.
+namespace wide {
+
+constexpr int MAX_S = 4;  // k steps a warp takes of each round
+
+// n8 batch tiles a warp holds: its accumulators are mt x ntw x 4 floats
+__host__ __device__ constexpr int max_ntw(int mt) { return mt == 4 ? 3 : 4; }
+
+// Computed on the host from the shapes (make_plan below); mirrored line for
+// line by kernels/lstm.py:wide_plan.
+struct Plan {
+  int units;         // U
+  int mt;            // m16 row tiles: 4 forward (tile = gate), 1 backward
+  int rows;          // rows of the slice: 4U forward (gate * U + u), U backward
+  int k;             // K: H forward, 4H backward
+  int kstep;         // k of one mma: 8 (f32, m16n8k8) or 16 (bf16, m16n8k16)
+  int wn, wk;        // warps along the batch and along K (wn * wk = 8)
+  int ntw;           // n8 batch tiles a warp holds
+  int nb;            // batch columns a chunk: wn * ntw * 8
+  int chunks;        // ceil(B / nb)
+  int kc;            // k a round: kstep * wk * s
+  int kr;            // rounds over K: ceil(K / kc)
+  int res_rounds;    // rounds of the slice resident in shared memory; the rest stream
+  int pitch;         // resident row pitch (elements): res_rounds * kc + 16 bytes
+  int spitch;        // stage row pitch (elements): kc + 16 bytes
+  int stage_offset;  // bytes: the resident slice, then two stage slots, then the partials
+  int slot_bytes;    // (rows + nb) * spitch elements: a streamed round's slice rows, then the batch
+  int part_offset;
+  int smem_bytes;
+};
+
+// False where two stage slots and the partials alone exceed smem_limit.
+inline bool make_plan(int elem_bytes, int units, int mt, int k, int batch, int smem_limit,
+                      Plan& p) {
+  if (units <= 0 || units > MAX_UNITS || k <= 0 || batch <= 0) return false;
+  const int pad = 16 / elem_bytes;
+  p.units = units;
+  p.mt = mt;
+  p.rows = mt == 4 ? 4 * units : units;
+  p.k = k;
+  p.kstep = elem_bytes == 4 ? 8 : 16;
+  const int nt = (batch + 7) / 8;
+  p.wn = WARPS;
+  while (p.wn > nt) p.wn /= 2;
+  p.wk = WARPS / p.wn;
+  p.ntw = (nt + p.wn - 1) / p.wn;
+  if (p.ntw > max_ntw(mt)) p.ntw = max_ntw(mt);
+  p.nb = p.wn * p.ntw * 8;
+  p.chunks = (batch + p.nb - 1) / p.nb;
+  const int part = (p.wk - 1) * mt * 16 * p.nb * 4;
+  int s = MAX_S;
+  while (s > 1 && 2 * (p.rows + p.nb) * (p.kstep * p.wk * s + pad) * elem_bytes + part >
+                      smem_limit / 2)
+    s /= 2;
+  p.kc = p.kstep * p.wk * s;
+  p.kr = (k + p.kc - 1) / p.kc;
+  p.spitch = p.kc + pad;
+  p.slot_bytes = (p.rows + p.nb) * p.spitch * elem_bytes;
+  const int room = smem_limit - 2 * p.slot_bytes - part;
+  if (room < 0) return false;
+  int res = (room / (p.rows * elem_bytes) - pad) / p.kc;
+  if (res < 0) res = 0;
+  if (res > p.kr) res = p.kr;
+  p.res_rounds = res;
+  p.pitch = res * p.kc + pad;
+  p.stage_offset = res > 0 ? p.rows * p.pitch * elem_bytes : 0;
+  p.part_offset = p.stage_offset + 2 * p.slot_bytes;
+  p.smem_bytes = p.part_offset + part;
+  return true;
+}
+
+// The row of w (w_hhᵀ [4H, H] forward, w_hh [H, 4H] backward; rows of K
+// elements) that row r of the block's slice holds, or -1 past the last unit.
+__device__ __forceinline__ long long slice_row(const Plan& p, int r, int j0, int hidden) {
+  const int gate = p.mt == 4 ? r / p.units : 0;
+  const int u = r - gate * p.units;
+  return j0 + u < hidden ? static_cast<long long>(gate) * hidden + j0 + u : -1;
+}
+
+// The resident part of the block's slice: [rows][pitch], k < res_rounds *
+// kc, zero past K and past the last unit. Ends with a __syncthreads().
+template <typename T>
+__device__ void load_resident(const Plan& p, T* ws, const T* w, int j0, int hidden, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int res_k = p.res_rounds * p.kc;
+  const int vpr = res_k / V;
+  for (int idx = threadIdx.x; idx < p.rows * vpr; idx += THREADS) {
+    const int r = idx / vpr;
+    const int kk = (idx - r * vpr) * V;
+    const long long grow = slice_row(p, r, j0, hidden);
+    const T* src = w + grow * p.k + kk;
+    T* dst = ws + r * p.pitch + kk;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = grow >= 0 && kk < p.k
+                                           ? *reinterpret_cast<const uint4*>(src)
+                                           : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (int e = 0; e < V; ++e)
+        dst[e] = grow >= 0 && kk + e < p.k ? src[e] : from_f32<T>(0.f);
+    }
+  }
+  __syncthreads();
+}
+
+// Round `round` into a stage slot: for a streamed round (round >=
+// res_rounds) the slice's rows [rows][spitch], then the nb batch rows of
+// chunk n0 of src ([B, ld], written by other blocks during the launch)
+// [nb][spitch], each kc elements from k = round * kc, zero past K, B and
+// the last unit. 16-byte cp.async copies (vec) or element loads through L2.
+template <typename T>
+__device__ __forceinline__ void stage_round(const Plan& p, T* slot, const T* w, int j0,
+                                            int hidden, const T* src, int ld, int batch, int n0,
+                                            int round, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int k0 = round * p.kc;
+  const int wrows = round >= p.res_rounds ? p.rows : 0;
+  const int vpr = p.kc / V;
+  for (int idx = threadIdx.x; idx < (wrows + p.nb) * vpr; idx += THREADS) {
+    const int r = idx / vpr;
+    const int kk = (idx - r * vpr) * V;
+    const int k = k0 + kk;
+    const T* from;
+    T* dst;
+    bool ok;
+    if (r < wrows) {
+      const long long grow = slice_row(p, r, j0, hidden);
+      ok = grow >= 0 && k < p.k;
+      from = w + grow * p.k + k;
+      dst = slot + r * p.spitch + kk;
+    } else {
+      const int n = r - wrows;
+      ok = n0 + n < batch && k < p.k;
+      from = src + static_cast<long long>(n0 + n) * ld + k;
+      dst = slot + (p.rows + n) * p.spitch + kk;
+    }
+    if (vec) {
+      mmautil::cp_async16(dst, ok ? from : src, ok);
+    } else {
+      for (int e = 0; e < V; ++e)
+        dst[e] = ok && k + e < p.k ? ldcg(from + e) : from_f32<T>(0.f);
+    }
+  }
+}
+
+// This warp's products of one round: acc[j][m] += rows of m16 tile m of
+// the slice (a: resident or staged, row pitch a_pitch, at the round's k)
+// times its n8 batch tile j (b: the slot's batch rows, pitch spitch), over
+// the k steps split, split + wk, ... of the round; tiles j >= nv hold no
+// batch rows. ar[m][h]: the slice row of the lane's row g + 8h of tile m.
+template <typename T, int MT, int NTW>
+__device__ __forceinline__ void round_products(const Plan& p, const T* a, int a_pitch,
+                                               const T* b, int (&ar)[MT][2], int split,
+                                               int wn_i, int nv, float (&acc)[NTW][MT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int steps = p.kc / p.kstep;
+  for (int ks = split; ks < steps; ks += p.wk) {
+    const int k = ks * p.kstep;
+    if constexpr (sizeof(T) == 2) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const T* r0 = a + ar[m][0] * a_pitch + k + 2 * q;
+        const T* r1 = a + ar[m][1] * a_pitch + k + 2 * q;
+        af[m][0] = ld32(r0);
+        af[m][1] = ld32(r1);
+        af[m][2] = ld32(r0 + 8);
+        af[m][3] = ld32(r1 + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (j < nv) {
+          const T* br = b + ((wn_i * NTW + j) * 8 + g) * p.spitch + k + 2 * q;
+          const uint32_t bf[2] = {ld32(br), ld32(br + 8)};
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_bf16(acc[j][m], af[m], bf);
+        }
+    } else {
+      uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const T* r0 = a + ar[m][0] * a_pitch + k + q;
+        const T* r1 = a + ar[m][1] * a_pitch + k + q;
+        mmautil::split_tf32(to_f32(r0[0]), ab[m][0], as[m][0]);
+        mmautil::split_tf32(to_f32(r1[0]), ab[m][1], as[m][1]);
+        mmautil::split_tf32(to_f32(r0[4]), ab[m][2], as[m][2]);
+        mmautil::split_tf32(to_f32(r1[4]), ab[m][3], as[m][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (j < nv) {
+          const T* br = b + ((wn_i * NTW + j) * 8 + g) * p.spitch + k + q;
+          uint32_t bb[2], bs[2];
+          mmautil::split_tf32(to_f32(br[0]), bb[0], bs[0]);
+          mmautil::split_tf32(to_f32(br[4]), bb[1], bs[1]);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mmautil::mma_tf32(acc[j][m], as[m], bb);
+            mmautil::mma_tf32(acc[j][m], ab[m], bs);
+            mmautil::mma_tf32(acc[j][m], ab[m], bb);
+          }
+        }
+    }
+  }
+}
+
+// One batch chunk (columns n0 .. n0 + nb) of a step's product, complete in
+// the registers of split 0's warps: acc[j][m][e] is row g + 8 (e / 2) of
+// tile m, column (wn_i * NTW + j) * 8 + 2q + e % 2 of the chunk. The rounds
+// run from the block's starting round, round i + 1 copied while round i is
+// multiplied; then the other splits' partials are added in split order.
+template <typename T, int MT, int NTW>
+__device__ void wide_chunk(const Plan& p, unsigned char* smem, const T* w, int j0, int hidden,
+                           const T* src, int ld, int batch, int n0, bool vec,
+                           float (&acc)[NTW][MT][4]) {
+  const T* ws = reinterpret_cast<const T*>(smem);
+  T* slots = reinterpret_cast<T*>(smem + p.stage_offset);
+  float* part = reinterpret_cast<float*>(smem + p.part_offset);
+  const int slot_elems = p.slot_bytes / static_cast<int>(sizeof(T));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int split = warp / p.wn, wn_i = warp - split * p.wn;
+  const int nt = (batch + 7) / 8;
+  int nv = nt - (n0 / 8 + wn_i * NTW);
+  nv = nv < 0 ? 0 : (nv < NTW ? nv : NTW);
+  // the slice rows of this lane's rows g and g + 8 of each tile; a row past
+  // the last unit reads unit U - 1, and its sums are never used
+  int ar[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = g + 8 * h;
+      ar[m][h] = (MT == 4 ? m * p.units : 0) + (u < p.units ? u : p.units - 1);
+    }
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][m][e] = 0.f;
+
+  const int first = blockIdx.x % p.kr;
+  const auto round_of = [&](int i) { return i + first < p.kr ? i + first : i + first - p.kr; };
+  stage_round(p, slots, w, j0, hidden, src, ld, batch, n0, round_of(0), vec);
+  mmautil::cp_async_commit();
+  for (int i = 0; i < p.kr; ++i) {
+    if (i + 1 < p.kr) {
+      stage_round(p, slots + ((i + 1) & 1) * slot_elems, w, j0, hidden, src, ld, batch, n0,
+                  round_of(i + 1), vec);
+      mmautil::cp_async_commit();
+      mmautil::cp_async_wait<1>();  // this thread's copies of round i have landed
+    } else {
+      mmautil::cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's have
+    const int r = round_of(i);
+    const T* slot = slots + (i & 1) * slot_elems;
+    if (nv > 0) {
+      if (r < p.res_rounds)
+        round_products<T, MT, NTW>(p, ws + r * p.kc, p.pitch, slot + p.rows * p.spitch, ar,
+                                   split, wn_i, nv, acc);
+      else
+        round_products<T, MT, NTW>(p, slot, p.spitch, slot + p.rows * p.spitch, ar, split,
+                                   wn_i, nv, acc);
+    }
+    __syncthreads();  // done with the slot that round i + 2 refills
+  }
+  if (p.wk == 1) return;
+  // the K splits' partials, [split - 1][tile row][column], then split 0 adds
+  // them in split order
+  const auto at = [&](int sp, int m, int e, int j) {
+    return part + ((sp - 1) * MT * 16 + m * 16 + g + 8 * (e >> 1)) * p.nb +
+           (wn_i * NTW + j) * 8 + 2 * q + (e & 1);
+  };
+  if (split > 0)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+      if (j < nv)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) *at(split, m, e, j) = acc[j][m][e];
+  __syncthreads();
+  if (split == 0)
+    for (int sp = 1; sp < p.wk; ++sp)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (j < nv)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][m][e] += *at(sp, m, e, j);
+}
+
+}  // namespace wide
 
 }  // namespace lstm

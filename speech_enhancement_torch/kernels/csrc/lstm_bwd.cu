@@ -31,7 +31,14 @@
 // aligned (4H % 8 != 0, or unaligned dgates or w_hh), f32 with unaligned
 // dgates or w_hh or wider than about 790 units, and batches of more than
 // 16 x 256 (b, u) pairs a block keep this first design (lstm_bwd_kernel:
-// gemm_chunk's register-staged chunks, dh and dc in device memory).
+// gemm_chunk's register-staged chunks, dh and dc in device memory), where
+// its slice fits; the rest (on 132 SMs: f32 from 1408 units, bf16 from
+// 1920, where neither the ring nor the split-f32 design fits) take the
+// wide design (lstm_bwd_wide; lstm.cuh, namespace wide): this structure
+// with the first rounds of the slice's K = 4H range resident and the rest
+// streamed from L2 every step through the stage slots that bring in
+// dgates[t], mma.sync in bf16 or split-f32 with both operands split in
+// registers.
 //
 // The f32 path whose plan fits (lstm_bwd_f32) is the bf16 ring below with
 // split-f32 products (lstm.cuh, namespace tc): the batch as M, the block's
@@ -682,19 +689,109 @@ inline int launch(const BwdArgs& a, const Plan& p, int blocks, cudaStream_t stre
 
 }  // namespace f32
 
-// Which design run() takes for these shapes (2: the split-f32 design, 1:
-// the bf16 ring, 0: the first design; -1: neither fits) and its plan.
+// -- the wide path -----------------------------------------------------------
+
+// The widths no other design holds (lstm.cuh, namespace wide): the first
+// res_rounds rounds of the slice (U rows of w_hh, K = 4H) resident, the
+// rest streamed through the stage slots with dgates[t] each step. As in the
+// first design, dh and dc live in dh0 and dc0, which only the owning block
+// touches: the pointwise part reads them in (b, u) order, split 0's
+// threads write dh from their accumulators.
+template <typename T, int NTW>
+__global__ void __launch_bounds__(lstm::THREADS, 1)
+    lstm_bwd_wide(const BwdArgs a, const lstm::wide::Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T* gates = static_cast<const T*>(a.gates);
+  const T* cseq = static_cast<const T*>(a.cseq);
+  const T* cprev = static_cast<const T*>(a.cprev);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* w = static_cast<const T*>(a.w);
+  T* dgates = static_cast<T*>(a.dgates);
+  const int H = a.hidden, B = a.batch, U = p.units, G4 = 4 * H;
+  const int j0 = blockIdx.x * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const bool owner = warp < p.wn;  // split 0: writes dh
+  lstm::wide::load_resident(p, reinterpret_cast<T*>(smem), w, j0, H, a.vec != 0);
+
+  float acc[NTW][1][4];
+  for (int s = 0; s < a.steps; ++s) {
+    const int t = a.reverse ? s : a.steps - 1 - s;
+    // the pointwise part for the block's own units
+    for (int idx = threadIdx.x; idx < U * B; idx += lstm::THREADS) {
+      const int b = idx / U;
+      const int j = j0 + idx - b * U;
+      if (j >= H) continue;
+      const long long row = static_cast<long long>(t) * B + b;
+      const T* gt = gates + row * G4 + j;
+      const float i = lstm::to_f32(gt[0]);
+      const float f = lstm::to_f32(gt[H]);
+      const float gg = lstm::to_f32(gt[2 * H]);
+      const float o = lstm::to_f32(gt[3 * H]);
+      const float tc = tanhf(lstm::to_f32(cseq[row * H + j]));
+      float* dhp = a.dh + static_cast<long long>(b) * H + j;
+      float* dcp = a.dc + static_cast<long long>(b) * H + j;
+      const float dh = *dhp + lstm::to_f32(dout[row * H + j]);
+      const float d_o = dh * tc;
+      const float dc = *dcp + dh * o * (1.f - tc * tc);
+      const float di = dc * gg;
+      const float df = dc * lstm::to_f32(cprev[row * H + j]);
+      const float dg = dc * i;
+      T* dgt = dgates + row * G4 + j;
+      dgt[0] = lstm::from_f32<T>(di * i * (1.f - i));
+      dgt[H] = lstm::from_f32<T>(df * f * (1.f - f));
+      dgt[2 * H] = lstm::from_f32<T>(dg * (1.f - gg * gg));
+      dgt[3 * H] = lstm::from_f32<T>(d_o * o * (1.f - o));
+      *dcp = dc * f;
+    }
+    lstm::grid_sync(a.bar, gridDim.x);  // dgates[t] of every unit is written
+    const T* src = dgates + static_cast<long long>(t) * B * G4;
+    for (int n0 = 0; n0 < B; n0 += p.nb) {
+      lstm::wide::wide_chunk<T, 1, NTW>(p, smem, w, j0, H, src, G4, B, n0, a.vec != 0, acc);
+      if (!owner) continue;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = n0 + (warp * NTW + j) * 8 + 2 * q + (e & 1);
+          const int u = g + 8 * (e >> 1);
+          if (b < B && u < U && j0 + u < H)
+            a.dh[static_cast<long long>(b) * H + j0 + u] = acc[j][0][e];
+        }
+    }
+    __syncthreads();  // the next step's pointwise part reads dh in another thread mapping
+  }
+}
+
 template <typename T>
-int choose(const BwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp) {
+int launch_wide(const BwdArgs& a, const lstm::wide::Plan& p, int blocks, cudaStream_t stream) {
+  switch (p.ntw) {
+    case 1: return lstm::launch(lstm_bwd_wide<T, 1>, a, p, blocks, stream);
+    case 2: return lstm::launch(lstm_bwd_wide<T, 2>, a, p, blocks, stream);
+    case 3: return lstm::launch(lstm_bwd_wide<T, 3>, a, p, blocks, stream);
+    default: return lstm::launch(lstm_bwd_wide<T, 4>, a, p, blocks, stream);
+  }
+}
+
+// Which design run() takes for these shapes (3: the wide design, 2: the
+// split-f32 design, 1: the bf16 ring, 0: the first design; -1: refused)
+// and its plan. The wide design takes exactly the shapes whose first-design
+// plan exceeds optin where neither the ring nor the split-f32 design fits.
+template <typename T>
+int choose(const BwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp,
+           lstm::wide::Plan& wp) {
   const int units = sms > 0 ? lstm::units_per_block(a.hidden, sms) : 0;
   if (units == 0) return -1;
   constexpr int V = 16 / sizeof(T);
   // 16-byte rows of dgates and of the slice
   const bool rows16 = (4 * a.hidden) % V == 0 && reinterpret_cast<uintptr_t>(a.dgates) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
-  if (!rows16) return 0;
-  if (sizeof(T) == 2) return ring::make_plan(units, a.hidden, a.batch, optin, rp) ? 1 : 0;
-  return f32::make_plan(units, a.hidden, a.batch, optin, fp) ? 2 : 0;
+  if (rows16) {
+    if (sizeof(T) == 2 && ring::make_plan(units, a.hidden, a.batch, optin, rp)) return 1;
+    if (sizeof(T) == 4 && f32::make_plan(units, a.hidden, a.batch, optin, fp)) return 2;
+  }
+  if (lstm::make_plan(sizeof(T), units, units, 4 * a.hidden, a.batch).smem_bytes <= optin)
+    return 0;
+  return lstm::wide::make_plan(sizeof(T), units, 1, 4 * a.hidden, a.batch, optin, wp) ? 3 : -1;
 }
 
 template <typename T>
@@ -704,22 +801,28 @@ int run(BwdArgs a, cudaStream_t stream) {
   if (const int err = lstm::optin_smem(optin)) return err;
   ring::Plan rp;
   f32::Plan fp;
-  const int design = choose<T>(a, sms, optin, rp, fp);
+  lstm::wide::Plan wp;
+  const int design = choose<T>(a, sms, optin, rp, fp, wp);
   if (design < 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int units = lstm::units_per_block(a.hidden, sms);
   const int blocks = (a.hidden + units - 1) / units;
   if (design == 1) return ring::launch(a, rp, blocks, stream);
   if (design == 2) return f32::launch(a, fp, blocks, stream);
-  const lstm::Plan p = lstm::make_plan(sizeof(T), units, units, 4 * a.hidden, a.batch);
   constexpr int V = 16 / sizeof(T);
   a.vec = (4 * a.hidden) % V == 0 && reinterpret_cast<uintptr_t>(a.dgates) % 16 == 0;
+  if (design == 3) {
+    a.vec = a.vec && reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+    return launch_wide<T>(a, wp, blocks, stream);
+  }
+  const lstm::Plan p = lstm::make_plan(sizeof(T), units, units, 4 * a.hidden, a.batch);
   return lstm::launch(lstm_bwd_kernel<T>, a, p, blocks, stream);
 }
 
 }  // namespace
 
 // The backward over all steps; returns cudaGetLastError() (or
-// cudaErrorCooperativeLaunchTooLarge when the grid does not fit).
+// cudaErrorCooperativeLaunchTooLarge where H needs more than 16 units a
+// block).
 extern "C" int lstm_bwd(int is_bf16, const void* gates, const void* cseq, const void* cprev,
                         const void* dout, const void* w, float* dh, float* dc, void* dgates,
                         unsigned int* bar, int steps, int batch, int hidden, int reverse,
@@ -732,12 +835,15 @@ extern "C" int lstm_bwd(int is_bf16, const void* gates, const void* cseq, const 
 
 // The design lstm_bwd takes on this card for these shapes, for the tests
 // (`aligned`: dgates and w_hh at 16-byte addresses, else at the element's
-// size): out[0] = 2 (the split-f32 design), 1 (the bf16 ring), 0 (the first
-// design) or -1 (refused); then its plan's fields, in the order of f32::Plan
-// (units, nt, cols, k, kr, stages, wm, wk, mw, nb, chunks, rpw, pitch,
-// slab_bytes, region, ring_offset, ppt, smem_bytes) or of ring::Plan (units,
-// nt, kc, kr, pitch, stages, wm, wk, mw, nb, chunks, rpw, region,
-// ring_offset, ppt, smem_bytes); zero past them. Returns a cudaError_t.
+// size): out[0] = 3 (the wide design), 2 (the split-f32 design), 1 (the
+// bf16 ring), 0 (the first design) or -1 (refused); then its plan's fields,
+// in the order of f32::Plan (units, nt, cols, k, kr, stages, wm, wk, mw,
+// nb, chunks, rpw, pitch, slab_bytes, region, ring_offset, ppt, smem_bytes),
+// of ring::Plan (units, nt, kc, kr, pitch, stages, wm, wk, mw, nb, chunks,
+// rpw, region, ring_offset, ppt, smem_bytes) or of lstm::wide::Plan (units,
+// mt, rows, k, kstep, wn, wk, ntw, nb, chunks, kc, kr, res_rounds, pitch,
+// spitch, stage_offset, slot_bytes, part_offset, smem_bytes); zero past
+// them. Returns a cudaError_t.
 extern "C" int lstm_bwd_plan(int is_bf16, int hidden, int batch, int aligned, int* out) {
   int optin = 0;
   if (const int err = lstm::optin_smem(optin)) return err;
@@ -750,15 +856,22 @@ extern "C" int lstm_bwd_plan(int is_bf16, int hidden, int batch, int aligned, in
   a.batch = batch;
   ring::Plan rp{};
   f32::Plan fp{};
+  lstm::wide::Plan wp{};
   const int sms = lstm::multiprocessors();
-  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, rp, fp)
-                   : choose<float>(a, sms, optin, rp, fp);
+  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, rp, fp, wp)
+                   : choose<float>(a, sms, optin, rp, fp, wp);
   const int f[] = {fp.units, fp.nt, fp.cols, fp.k, fp.kr, fp.stages, fp.wm, fp.wk, fp.mw,
                    fp.nb, fp.chunks, fp.rpw, fp.pitch, fp.slab_bytes, fp.region, fp.ring_offset,
                    fp.ppt, fp.smem_bytes};
   const int r[] = {rp.units, rp.nt, rp.kc, rp.kr, rp.pitch, rp.stages, rp.wm, rp.wk, rp.mw,
                    rp.nb, rp.chunks, rp.rpw, rp.region, rp.ring_offset, rp.ppt, rp.smem_bytes};
+  const int w[] = {wp.units, wp.mt, wp.rows, wp.k, wp.kstep, wp.wn, wp.wk, wp.ntw, wp.nb,
+                   wp.chunks, wp.kc, wp.kr, wp.res_rounds, wp.pitch, wp.spitch, wp.stage_offset,
+                   wp.slot_bytes, wp.part_offset, wp.smem_bytes};
   for (int i = 0; i < 19; ++i)
-    out[1 + i] = out[0] == 2 && i < 18 ? f[i] : out[0] == 1 && i < 16 ? r[i] : 0;
+    out[1 + i] = out[0] == 3   ? w[i]
+                 : out[0] == 2 ? (i < 18 ? f[i] : 0)
+                 : out[0] == 1 ? (i < 16 ? r[i] : 0)
+                               : 0;
   return static_cast<int>(cudaSuccess);
 }

@@ -28,9 +28,10 @@
 // (U 14: 56 x 1800 bf16 = 201,600 B of its 227 KB of shared memory), read
 // from device memory once. Each step it multiplies its rows by the whole
 // h_prev (from L2), and the gate math and the c update stay inside the
-// block. One grid barrier a step publishes h_t. A width whose slice does
-// not fit (f32 beyond about 1250 units, or more than 16 units a block) is
-// refused with cudaErrorCooperativeLaunchTooLarge rather than launched.
+// block. One grid barrier a step publishes h_t. A width that needs more
+// than 16 units a block is refused with cudaErrorCooperativeLaunchTooLarge
+// rather than launched; a width whose slice does not fit beside the
+// staging takes the wide design (below).
 //
 // The bf16 path with 16-byte rows (lstm_fwd_ring; H % 8 == 0 and aligned
 // h0, h_seq) is built around the step's latency. A step is a sequence of
@@ -96,6 +97,16 @@
 // bf16 rows that are not 16-byte aligned, and f32 shapes that no split-f32
 // plan takes, keep the first design (lstm_fwd_kernel: gemm_chunk's
 // register-staged chunks and an f32 output buffer in shared memory).
+// The shapes that no design above holds (on 132 SMs: f32 from 1280 units
+// at B 192, from 1408 at B 16, from 1152 at B 8; bf16 from 1920) take the
+// wide design (lstm_fwd_wide; lstm.cuh, namespace wide): the first
+// rounds of the slice's K range resident, the rest streamed from L2 every
+// step through the stage slots that bring in h_prev, mma.sync in bf16 or
+// split-f32 with both operands split in registers. At CRN's f32 width (H
+// 1792, B 192, T 501) that is 2.47 TFLOP a layer: 14.99 ms at 3xTF32's
+// 165 TFLOP/s against 2.07 ms of bytes, so operations bound it; the
+// streamed part of w_hh (about 70% at B 192) adds about 32 MB of L2 reads a
+// step, which the products hide.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -725,10 +736,83 @@ inline int launch(const FwdArgs& a, const Plan& p, int blocks, cudaStream_t stre
 
 }  // namespace f32
 
-// Which design run() takes for these shapes and addresses (2: the split-f32
-// design, 1: the bf16 ring, 0: the first design; -1: refused) and its plan.
+// -- the wide path -----------------------------------------------------------
+
+// The widths no other design holds (lstm.cuh, namespace wide): the first
+// res_rounds rounds of the slice resident, the rest streamed through the
+// stage slots with h_prev each step. The gate math runs from split 0's
+// accumulators: tile m is gate m, so a thread holds all four gates of units
+// g and g + 8 at its columns.
+template <typename T, int NTW>
+__global__ void __launch_bounds__(lstm::THREADS, 1)
+    lstm_fwd_wide(const FwdArgs a, const lstm::wide::Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T* xp = static_cast<const T*>(a.xp);
+  const T* wt = static_cast<const T*>(a.wt);
+  T* hseq = static_cast<T*>(a.hseq);
+  T* cseq = static_cast<T*>(a.cseq);
+  T* gates = static_cast<T*>(a.gates);
+  const int H = a.hidden, B = a.batch, U = p.units;
+  const int j0 = blockIdx.x * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const bool owner = warp < p.wn;  // split 0: the pointwise part
+  lstm::wide::load_resident(p, reinterpret_cast<T*>(smem), wt, j0, H, a.vec != 0);
+
+  float acc[NTW][4][4];
+  for (int s = 0; s < a.steps; ++s) {
+    const int t = a.reverse ? a.steps - 1 - s : s;
+    const T* hprev = s == 0 ? static_cast<const T*>(a.h0)
+                            : hseq + static_cast<long long>(a.reverse ? t + 1 : t - 1) * B * H;
+    for (int n0 = 0; n0 < B; n0 += p.nb) {
+      lstm::wide::wide_chunk<T, 4, NTW>(p, smem, wt, j0, H, hprev, H, B, n0, a.vec != 0, acc);
+      if (!owner) continue;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = n0 + (warp * NTW + j) * 8 + 2 * q + (e & 1);
+          const int u = g + 8 * (e >> 1);
+          const int jj = j0 + u;
+          if (b >= B || u >= U || jj >= H) continue;
+          const long long row = static_cast<long long>(t) * B + b;
+          const T* x = xp + row * 4 * H + jj;
+          const float i = lstm::sigmoid(lstm::to_f32(x[0]) + acc[j][0][e]);
+          const float f = lstm::sigmoid(lstm::to_f32(x[H]) + acc[j][1][e]);
+          const float gg = tanhf(lstm::to_f32(x[2 * H]) + acc[j][2][e]);
+          const float o = lstm::sigmoid(lstm::to_f32(x[3 * H]) + acc[j][3][e]);
+          float* cc = a.c + static_cast<long long>(b) * H + jj;
+          const float c = f * *cc + i * gg;
+          *cc = c;
+          hseq[row * H + jj] = lstm::from_f32<T>(o * tanhf(c));
+          cseq[row * H + jj] = lstm::from_f32<T>(c);
+          T* gt = gates + row * 4 * H + jj;
+          gt[0] = lstm::from_f32<T>(i);
+          gt[H] = lstm::from_f32<T>(f);
+          gt[2 * H] = lstm::from_f32<T>(gg);
+          gt[3 * H] = lstm::from_f32<T>(o);
+        }
+    }
+    if (s + 1 < a.steps) lstm::grid_sync(a.bar, gridDim.x);
+  }
+}
+
 template <typename T>
-int choose(const FwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp) {
+int launch_wide(const FwdArgs& a, const lstm::wide::Plan& p, int blocks, cudaStream_t stream) {
+  switch (p.ntw) {
+    case 1: return lstm::launch(lstm_fwd_wide<T, 1>, a, p, blocks, stream);
+    case 2: return lstm::launch(lstm_fwd_wide<T, 2>, a, p, blocks, stream);
+    default: return lstm::launch(lstm_fwd_wide<T, 3>, a, p, blocks, stream);
+  }
+}
+
+// Which design run() takes for these shapes and addresses (3: the wide
+// design, 2: the split-f32 design, 1: the bf16 ring, 0: the first design;
+// -1: refused) and its plan. The wide design takes exactly the shapes that
+// the others refuse (no ring beside a bf16 slice) or whose first-design plan
+// exceeds optin.
+template <typename T>
+int choose(const FwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp,
+           lstm::wide::Plan& wp) {
   const int units = sms > 0 ? lstm::units_per_block(a.hidden, sms) : 0;
   if (units == 0) return -1;
   constexpr int V = 16 / sizeof(T);
@@ -736,11 +820,17 @@ int choose(const FwdArgs& a, int sms, int optin, ring::Plan& rp, f32::Plan& fp) 
   const bool rows16 = a.hidden % V == 0 && reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(a.hseq) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(a.wt) % 16 == 0;
+  int code = 0;
   if (sizeof(T) == 2) {
-    if (!rows16) return 0;
-    return ring::make_plan(units, a.hidden, a.batch, optin, rp) ? 1 : -1;
+    if (rows16) code = ring::make_plan(units, a.hidden, a.batch, optin, rp) ? 1 : -1;
+  } else if (rows16 && f32::make_plan(units, a.hidden, a.batch, optin, fp)) {
+    code = 2;
   }
-  return rows16 && f32::make_plan(units, a.hidden, a.batch, optin, fp) ? 2 : 0;
+  if (code > 0) return code;
+  if (code == 0 &&
+      lstm::make_plan(sizeof(T), units, 4 * units, a.hidden, a.batch).smem_bytes <= optin)
+    return 0;
+  return lstm::wide::make_plan(sizeof(T), units, 4, a.hidden, a.batch, optin, wp) ? 3 : -1;
 }
 
 template <typename T>
@@ -750,7 +840,8 @@ int run(FwdArgs a, cudaStream_t stream) {
   if (const int err = lstm::optin_smem(optin)) return err;
   ring::Plan rp;
   f32::Plan fp;
-  const int design = choose<T>(a, sms, optin, rp, fp);
+  lstm::wide::Plan wp;
+  const int design = choose<T>(a, sms, optin, rp, fp, wp);
   if (design < 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int units = lstm::units_per_block(a.hidden, sms);
   const int blocks = (a.hidden + units - 1) / units;
@@ -761,6 +852,10 @@ int run(FwdArgs a, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   a.vec = a.hidden % V == 0 && reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(a.hseq) % 16 == 0;
+  if (design == 3) {
+    a.vec = a.vec && reinterpret_cast<uintptr_t>(a.wt) % 16 == 0;
+    return launch_wide<T>(a, wp, blocks, stream);
+  }
   const lstm::Plan p = lstm::make_plan(sizeof(T), units, 4 * units, a.hidden, a.batch);
   return lstm::launch(lstm_fwd_kernel<T>, a, p, blocks, stream);
 }
@@ -768,7 +863,8 @@ int run(FwdArgs a, cudaStream_t stream) {
 }  // namespace
 
 // The forward over all steps; returns cudaGetLastError() (or
-// cudaErrorCooperativeLaunchTooLarge when the grid does not fit).
+// cudaErrorCooperativeLaunchTooLarge where H needs more than 16 units a
+// block).
 extern "C" int lstm_fwd(int is_bf16, const void* xp, const void* wt, const void* h0, float* c,
                         void* hseq, void* cseq, void* gates, unsigned int* bar, int steps,
                         int batch, int hidden, int reverse, cudaStream_t stream) {
@@ -779,11 +875,13 @@ extern "C" int lstm_fwd(int is_bf16, const void* xp, const void* wt, const void*
 
 // The design lstm_fwd takes on this card for these shapes, for the tests
 // (`aligned`: h0, h_seq and w_hhᵀ at 16-byte addresses, else at the
-// element's size): out[0] = 2 (the split-f32 design), 1 (the bf16 ring), 0
-// (the first design) or -1 (refused); with the split-f32 design, out[1..]
-// = its plan (units, nt, cols, k, kr, stages, wm, wk, mw, nb, chunks, rpw,
-// pitch, slab_bytes, region, ring_offset, ppt, smem_bytes), else zeros.
-// Returns a cudaError_t.
+// element's size): out[0] = 3 (the wide design), 2 (the split-f32 design),
+// 1 (the bf16 ring), 0 (the first design) or -1 (refused); then the plan's
+// fields of the split-f32 design (units, nt, cols, k, kr, stages, wm, wk,
+// mw, nb, chunks, rpw, pitch, slab_bytes, region, ring_offset, ppt,
+// smem_bytes) or of the wide design (units, mt, rows, k, kstep, wn, wk,
+// ntw, nb, chunks, kc, kr, res_rounds, pitch, spitch, stage_offset,
+// slot_bytes, part_offset, smem_bytes), else zeros. Returns a cudaError_t.
 extern "C" int lstm_fwd_plan(int is_bf16, int hidden, int batch, int aligned, int* out) {
   int optin = 0;
   if (const int err = lstm::optin_smem(optin)) return err;
@@ -796,12 +894,16 @@ extern "C" int lstm_fwd_plan(int is_bf16, int hidden, int batch, int aligned, in
   a.batch = batch;
   ring::Plan rp{};
   f32::Plan fp{};
+  lstm::wide::Plan wp{};
   const int sms = lstm::multiprocessors();
-  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, rp, fp)
-                   : choose<float>(a, sms, optin, rp, fp);
+  out[0] = is_bf16 ? choose<__nv_bfloat16>(a, sms, optin, rp, fp, wp)
+                   : choose<float>(a, sms, optin, rp, fp, wp);
   const int f[] = {fp.units, fp.nt, fp.cols, fp.k, fp.kr, fp.stages, fp.wm, fp.wk, fp.mw,
                    fp.nb, fp.chunks, fp.rpw, fp.pitch, fp.slab_bytes, fp.region, fp.ring_offset,
                    fp.ppt, fp.smem_bytes};
-  for (int i = 0; i < 19; ++i) out[1 + i] = out[0] == 2 && i < 18 ? f[i] : 0;
+  const int w[] = {wp.units, wp.mt, wp.rows, wp.k, wp.kstep, wp.wn, wp.wk, wp.ntw, wp.nb,
+                   wp.chunks, wp.kc, wp.kr, wp.res_rounds, wp.pitch, wp.spitch, wp.stage_offset,
+                   wp.slot_bytes, wp.part_offset, wp.smem_bytes};
+  for (int i = 0; i < 19; ++i) out[1 + i] = out[0] == 2 && i < 18 ? f[i] : out[0] == 3 ? w[i] : 0;
   return static_cast<int>(cudaSuccess);
 }

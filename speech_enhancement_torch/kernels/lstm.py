@@ -15,17 +15,21 @@ Counterpart of speech_enhancement_tpu/ops/pallas/lstm.py (``fused_lstm``,
 ``lstm_fwd`` launches ``csrc/lstm_fwd.cu`` for CUDA tensors (one launch for
 all T steps, counted in ``lstm_fwd.launches``) and runs
 :func:`fused_lstm_plain` for CPU tensors; ``lstm_bwd`` does the same with
-``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Each kernel has three
+``csrc/lstm_bwd.cu`` and :func:`lstm_bwd_plain`. Each kernel has four
 designs, which the C code picks from the shapes by plan: a ring path for
 bf16 with 16-byte rows, a split-f32 path on tensor cores for f32 with
-16-byte rows whose plan fits (``csrc/lstm.cuh``, namespace ``tc``), and the
-first design for the rest; :func:`bwd_ring_plan` and :func:`f32_plan`
-mirror the C plans and :func:`f32_design` the f32 choice, and
-:func:`lstm_fwd_design` / :func:`lstm_bwd_design` ask the built library
-for them. Any other device raises,
-and there is no fallback from a kernel to its plain version: a width whose
-weight slice does not fit the cooperative grid raises. The kernel sources
-say what bounds them and how the weights stay resident.
+16-byte rows whose plan fits (``csrc/lstm.cuh``, namespace ``tc``), the
+first design for the rest where its slice fits, and the wide design
+(namespace ``wide``: part of the slice resident, the rest streamed each
+step) for the widths no other design holds; :func:`fwd_ring_plan`,
+:func:`bwd_ring_plan`, :func:`f32_plan`, :func:`first_plan_bytes` and
+:func:`wide_plan` mirror the C plans, :func:`f32_design` the f32 choice
+between the split-f32 and first designs and :func:`lstm_design` the whole
+choice, and :func:`lstm_fwd_design` / :func:`lstm_bwd_design` ask the
+built library for it. Any other device raises, and there is no fallback
+from a kernel to its plain version: a width that needs more than 16 units a
+block (H > 2112 on 132 SMs) raises. The kernel sources say what bounds them
+and how the weights stay resident.
 
 :func:`fused_lstm` is the autograd Function :class:`FusedLSTM` around them,
 whose backward folds ``d_h_last`` into ``d_h_seq``, runs ``lstm_bwd`` with
@@ -108,7 +112,116 @@ _ENTRIES = {
     "lstm_bwd_plan": ("lstm_bwd", [_I] * 4 + [_P]),
 }
 _PLAN_INTS = 20  # the plan entries' out[]
-_DESIGNS = {2: "f32", 1: "ring", 0: "first"}
+_DESIGNS = {3: "wide", 2: "f32", 1: "ring", 0: "first"}
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+# csrc/lstm_fwd.cu, namespace ring
+_FWD_RING_STAGES, _FWD_RING_SPAD, _FWD_RING_MAX_KC = 3, 8, 256
+
+
+def fwd_ring_plan(units: int, hidden: int, batch: int, smem_limit: int):
+    """``ring::make_plan`` of ``csrc/lstm_fwd.cu``, line for line: the bf16
+    forward's ring plan, or None where no ring fits beside the slice (the
+    wide design then takes the width). Change both together."""
+    mt = 4 if units > 8 else 2
+    hp = _align16(hidden)
+    p = {"units": units, "mt": mt, "rows": 4 * units, "hp": hp, "pitch": hp + _FWD_RING_SPAD}
+    p["ring_offset"] = _align16(p["rows"] * p["pitch"] * 2)
+    nt = (batch + 7) // 8
+    best = None
+    for w in range(3 if mt == 4 else 6, 0, -1):
+        wn = 8 if nt >= 8 else nt
+        splits = 1 if nt >= 8 else 8 // nt
+        if splits > 1 and w > 1:
+            continue
+        nb = wn * w * 8
+        chunks = (nt * 8 + nb - 1) // nb
+        part = (splits - 1) * mt * 16 * nb * 4
+        room = smem_limit - p["ring_offset"] - part
+        if room <= 0:
+            continue
+        fit = room // _FWD_RING_STAGES // (nb * 2) - _FWD_RING_SPAD
+        if fit < 16:
+            continue
+        kc = 16
+        while 2 * kc <= fit and 2 * kc <= _FWD_RING_MAX_KC and kc < hp:
+            kc *= 2
+        if best is not None and chunks * w >= best["chunks"] * best["ntw"]:
+            continue
+        best = {"ntw": w, "wn": wn, "splits": splits, "nb": nb, "chunks": chunks, "kc": kc}
+    if best is None:
+        return None
+    p.update(best)
+    p["spitch"] = p["kc"] + _FWD_RING_SPAD
+    p["kr"] = (hp + p["kc"] - 1) // p["kc"]
+    p["part_offset"] = p["ring_offset"] + _FWD_RING_STAGES * p["nb"] * p["spitch"] * 2
+    p["smem_bytes"] = p["part_offset"] + (p["splits"] - 1) * mt * 16 * p["nb"] * 4
+    return p
+
+
+def first_plan_bytes(elem_bytes: int, units: int, rows: int, k: int, batch: int) -> int:
+    """The shared memory of the first design's plan (``lstm::make_plan`` of
+    ``csrc/lstm.cuh``, line for line): the slice of ``rows`` x ``k``, a
+    staged chunk and the f32 partials. Change both together."""
+    nb = min((batch + 7) // 8 * 8, 64)
+    kc = max(4096 // nb // 64 * 64, 64)
+    kc = min(kc, (k + 63) // 64 * 64)
+    pitch = (k + kc - 1) // kc * kc + 8
+    mt = (rows + 15) // 16
+    tiles = mt * (nb // 8)
+    splits = min(8 // tiles, kc // 16) if elem_bytes == 2 and tiles < 8 else 1
+    out_offset = _align16(rows * pitch * elem_bytes) + _align16(nb * (kc + 8) * elem_bytes)
+    return out_offset + splits * mt * 16 * nb * 4
+
+
+# csrc/lstm.cuh, namespace wide
+_WIDE_MAX_S = 4
+_WIDE_FIELDS = ("units", "mt", "rows", "k", "kstep", "wn", "wk", "ntw", "nb", "chunks", "kc",
+                "kr", "res_rounds", "pitch", "spitch", "stage_offset", "slot_bytes",
+                "part_offset", "smem_bytes")
+
+
+def wide_plan(elem_bytes: int, units: int, mt: int, k: int, batch: int, smem_limit: int):
+    """``wide::make_plan`` of ``csrc/lstm.cuh``, line for line: the wide
+    design's plan for ``units`` hidden units a block, ``mt`` m16 row tiles
+    (4 forward, 1 backward) and a reduction of ``k``, or None where two stage
+    slots and the partials alone exceed ``smem_limit``. Change both
+    together."""
+    if units <= 0 or units > 16 or k <= 0 or batch <= 0:
+        return None
+    pad = 16 // elem_bytes
+    p = {"units": units, "mt": mt, "rows": 4 * units if mt == 4 else units, "k": k,
+         "kstep": 8 if elem_bytes == 4 else 16}
+    nt = (batch + 7) // 8
+    wn = 8
+    while wn > nt:
+        wn //= 2
+    p["wn"], p["wk"] = wn, 8 // wn
+    p["ntw"] = min(-(-nt // wn), 3 if mt == 4 else 4)
+    p["nb"] = wn * p["ntw"] * 8
+    p["chunks"] = -(-batch // p["nb"])
+    part = (p["wk"] - 1) * mt * 16 * p["nb"] * 4
+    s = _WIDE_MAX_S
+    while s > 1 and (2 * (p["rows"] + p["nb"]) * (p["kstep"] * p["wk"] * s + pad) * elem_bytes
+                     + part > smem_limit // 2):
+        s //= 2
+    p["kc"] = p["kstep"] * p["wk"] * s
+    p["kr"] = -(-k // p["kc"])
+    p["spitch"] = p["kc"] + pad
+    p["slot_bytes"] = (p["rows"] + p["nb"]) * p["spitch"] * elem_bytes
+    room = smem_limit - 2 * p["slot_bytes"] - part
+    if room < 0:
+        return None
+    p["res_rounds"] = min(max((room // (p["rows"] * elem_bytes) - pad) // p["kc"], 0), p["kr"])
+    p["pitch"] = p["res_rounds"] * p["kc"] + pad
+    p["stage_offset"] = p["rows"] * p["pitch"] * elem_bytes if p["res_rounds"] else 0
+    p["part_offset"] = p["stage_offset"] + 2 * p["slot_bytes"]
+    p["smem_bytes"] = p["part_offset"] + part
+    return {key: p[key] for key in _WIDE_FIELDS}
 
 # csrc/lstm_bwd.cu, namespace ring
 _RING_KCS, _RING_MIN_STAGES, _RING_MAX_STAGES, _RING_MAX_MW = (64, 32, 16), 3, 8, 4
@@ -224,8 +337,10 @@ def f32_design(kernel: str, hidden: int, batch: int, sms: int, smem_limit: int,
                aligned: bool = True):
     """The f32 choice of ``csrc/lstm_fwd.cu`` (``kernel`` "fwd") or
     ``lstm_bwd.cu`` ("bwd") on a card of ``sms`` SMs and ``smem_limit``
-    bytes a block, as their ``choose`` makes it: ("f32", plan), ("first",
-    None), or None where the grid does not fit (more than 16 units a block).
+    bytes a block between the split-f32 and the first design, as their
+    ``choose`` makes it: ("f32", plan), ("first", None), or None where the
+    grid does not fit (more than 16 units a block); :func:`lstm_design`
+    sends a "first" whose plan exceeds ``smem_limit`` to the wide design.
     The forward's split-f32 design wants 16-byte rows of h_prev (H % 4 == 0)
     and, with ``aligned``, h0, h_seq and w_hhᵀ at 16-byte addresses; the
     backward's wants dgates and w_hh there (its rows of 4H floats are)."""
@@ -240,6 +355,44 @@ def f32_design(kernel: str, hidden: int, batch: int, sms: int, smem_limit: int,
     return ("f32", plan) if plan is not None else ("first", None)
 
 
+def lstm_design(kernel: str, dtype: torch.dtype, hidden: int, batch: int, sms: int,
+                smem_limit: int, aligned: bool = True):
+    """The whole choice of ``csrc/lstm_fwd.cu`` (``kernel`` "fwd") or
+    ``lstm_bwd.cu`` ("bwd") on a card of ``sms`` SMs and ``smem_limit``
+    bytes a block, as their ``choose`` makes it: ("ring", plan), ("f32",
+    plan), ("first", None), ("wide", plan), or None where the grid does not
+    fit (more than 16 units a block). The wide design takes exactly the
+    shapes the others refuse: a bf16 forward whose ring does not fit beside
+    its slice, and every shape that would fall to a first design whose plan
+    exceeds ``smem_limit``. ``aligned`` as in :func:`f32_design`."""
+    units = -(-hidden // sms)
+    if units > 16:
+        return None
+    elem_bytes = 2 if dtype == torch.bfloat16 else 4
+    k = hidden if kernel == "fwd" else 4 * hidden
+    rows16 = aligned and k % (16 // elem_bytes) == 0
+    if elem_bytes == 4:
+        got = f32_design(kernel, hidden, batch, sms, smem_limit, aligned)
+        if got[0] == "f32":
+            return got
+        refused = False
+    elif kernel == "fwd":
+        plan = fwd_ring_plan(units, hidden, batch, smem_limit) if rows16 else None
+        if plan is not None:
+            return "ring", plan
+        refused = rows16  # no ring beside the slice
+    else:
+        plan = bwd_ring_plan(units, hidden, batch, smem_limit) if rows16 else None
+        if plan is not None:
+            return "ring", plan
+        refused = False
+    rows = 4 * units if kernel == "fwd" else units
+    if not refused and first_plan_bytes(elem_bytes, units, rows, k, batch) <= smem_limit:
+        return "first", None
+    plan = wide_plan(elem_bytes, units, 4 if kernel == "fwd" else 1, k, batch, smem_limit)
+    return None if plan is None else ("wide", plan)
+
+
 def _design(name: str, dtype: torch.dtype, hidden: int, batch: int, aligned: bool):
     out = (ctypes.c_int * _PLAN_INTS)()
     code = _entry(f"{name}_plan")(int(dtype == torch.bfloat16), hidden, batch, int(aligned),
@@ -251,12 +404,13 @@ def _design(name: str, dtype: torch.dtype, hidden: int, batch: int, aligned: boo
     design = _DESIGNS[out[0]]
     if design == "first" or (design == "ring" and name == "lstm_fwd"):
         return design, None
-    return design, dict(zip(_TC_FIELDS if design == "f32" else _RING_FIELDS, out[1:]))
+    fields = {"f32": _TC_FIELDS, "ring": _RING_FIELDS, "wide": _WIDE_FIELDS}[design]
+    return design, dict(zip(fields, out[1:]))
 
 
 def lstm_fwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool = True):
-    """("f32", plan), ("ring", None) or ("first", None): the design
-    ``csrc/lstm_fwd.cu`` takes on the current card for these shapes
+    """("wide", plan), ("f32", plan), ("ring", None) or ("first", None): the
+    design ``csrc/lstm_fwd.cu`` takes on the current card for these shapes
     (``aligned``: h0, h_seq and w_hhᵀ at 16-byte addresses), as its
     ``lstm_fwd_plan`` entry reports; raises where the grid does not fit.
     Needs a card."""
@@ -264,8 +418,8 @@ def lstm_fwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool =
 
 
 def lstm_bwd_design(dtype: torch.dtype, hidden: int, batch: int, aligned: bool = True):
-    """("f32", plan), ("ring", plan) or ("first", None): the design
-    ``csrc/lstm_bwd.cu`` takes on the current card for these shapes
+    """("wide", plan), ("f32", plan), ("ring", plan) or ("first", None): the
+    design ``csrc/lstm_bwd.cu`` takes on the current card for these shapes
     (``aligned``: dgates and w_hh at 16-byte addresses), as its
     ``lstm_bwd_plan`` entry reports; raises for a width whose grid does not
     fit. Needs a card."""

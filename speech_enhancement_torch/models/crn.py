@@ -18,7 +18,9 @@ BatchNorm and everything after it in f32; parameters stay f32.
 ``fused_rnn=True`` runs both LSTM layers through the recurrence kernels
 (``kernels/lstm.py``: one forward launch a layer, and one backward launch
 a layer in training) on a CUDA tensor and their plain versions on a CPU
-tensor; False runs the plain loop, the JAX ``lax.scan`` path.
+tensor, in either dtype (at the class default f32 the 1792-wide layers
+take the kernels' wide design); False runs the plain loop, the JAX
+``lax.scan`` path.
 
 Parameter names are the reference torch CRN's (``conv_block_{i}.conv``,
 ``conv_block_{i}.norm``, ``lstm_layer.*_l{0,1}``, ``tran_conv_block_{i}``),

@@ -20,7 +20,9 @@ windows run as one batch and stitches them back; its two bidirectional
 LSTM layers (``ops/rnn.py:RNNStack``) run the recurrence kernels of
 ``kernels/lstm.py`` with ``fused_rnn=True`` (four forward launches a
 BLSTM, and four backward launches in training) and the plain loop
-without.
+without. ``lstm_layers`` adds such a BLSTM (unframed) at the bottleneck;
+at configs/demucs_clarity.yaml's widths it is 2048 units, which the
+kernels' wide design takes.
 
 Activations [B, C, T]. Convs run in ``dtype``; GroupNorm (flax's: f32,
 eps 1e-6) promotes to f32, and what follows it stays f32 until the next

@@ -12,6 +12,7 @@ plain versions and is held against the JAX ``fused_rnn="force"``
 
 import functools
 from collections.abc import Mapping
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -277,6 +278,42 @@ def test_rnn_stft_mask_evaluate_utterance_matches_jax(rng):
                                        device="cpu")
     assert got.shape == want.shape == (1, 2, 2, 7000)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_crn_config_at_f32_routes_through_fused_lstm(rng, monkeypatch):
+    """configs/crn_vbd.yaml with ``dtype: float32`` (the class default, the
+    reference's own precision) and its ``fused_rnn: true``, cut to n_fft
+    128: it builds through ``build_model``, both LSTM layers go through
+    ``fused_lstm`` in f32 (the kernels' plain versions on the CPU; on the
+    card, at the config's 1792 units, the wide design), and it matches the
+    JAX ``fused_rnn="force"`` CRN on the same weights."""
+    from speech_enhancement_torch.config import load_config
+    from speech_enhancement_torch.kernels import lstm as lstm_k
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs" / "crn_vbd.yaml"))
+    assert cfg.model.fused_rnn is True and cfg.model.n_fft == 512
+    cfg.model.dtype = "float32"
+    for key, value in STFT.items():
+        setattr(cfg.model, key, value)
+    model, _ = build_model(cfg.model, device="cpu")
+    assert model.fused_rnn and model.lstm_layer.dtype == torch.float32 and model.width == 256
+    variables = _crn_variables()
+    model.load_state_dict(crn_state_from_jax(variables["params"], variables["batch_stats"]))
+    calls = []
+    plain = lstm_k.fused_lstm_plain
+
+    def spy(x_proj, *args, **kw):
+        calls.append((tuple(x_proj.shape), x_proj.dtype))
+        return plain(x_proj, *args, **kw)
+
+    monkeypatch.setattr(lstm_k, "fused_lstm_plain", spy)
+    _, spec = _spectrum(rng, 2, 1)
+    with torch.inference_mode():
+        got = model.eval()(torch.from_numpy(spec)).numpy()
+    assert len(calls) == 2 and all(shape[-1] == 4 * 256 and dtype == torch.float32
+                                   for shape, dtype in calls)
+    want = np.asarray(jax_crn.CRN(fused_rnn="force").apply(variables, jnp.asarray(spec)))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
 
 
 def test_build_model_builds_both_families_on_the_cpu():

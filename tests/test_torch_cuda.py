@@ -777,11 +777,41 @@ def test_fused_lstm_gradients_on_card_match_cpu(card):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("hidden,dtype", [(1792, torch.float32), (4096, torch.bfloat16)])
+# The wide design (csrc/lstm.cuh, namespace wide): the widths whose slice no
+# other design holds beside its staging. CRN at f32 (H 1792) and Demucs's
+# bottleneck BLSTM (H 2048, 16 units a block) in both dtypes, at CRN's
+# train and serve batches and Demucs's B 8, a ragged batch (B 70); H 1790
+# in f32 (not a multiple of 4: the forward stages h and its slice element
+# by element)
+LSTM_WIDE_DESIGN = [((4, 16, 1792), torch.float32), ((3, 192, 1792), torch.float32),
+                    ((4, 8, 2048), torch.float32), ((3, 192, 2048), torch.float32),
+                    ((4, 8, 2048), torch.bfloat16), ((3, 192, 2048), torch.bfloat16),
+                    ((3, 70, 2048), torch.bfloat16), ((3, 5, 1790), torch.float32)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,dtype", LSTM_WIDE_DESIGN)
+def test_lstm_wide_kernels_match_plain(card, shape, dtype, reverse):
+    """Both kernels against their plain versions within LSTM_TOL, each
+    launched once and taking the wide design with the plan that
+    kernels/lstm.py:lstm_design mirrors (tests/test_torch_lstm_wide.py walks
+    its indexing)."""
+    from speech_enhancement_torch.kernels.lstm import (lstm_bwd_design, lstm_design,
+                                                       lstm_fwd_design)
+    _, batch, hidden = shape
+    sms, optin = _card_plan_args(card)
+    for kernel, design in (("fwd", lstm_fwd_design), ("bwd", lstm_bwd_design)):
+        got = design(dtype, hidden, batch)
+        assert got[0] == "wide", (kernel, got)
+        assert got == lstm_design(kernel, dtype, hidden, batch, sms, optin)
+    _check_lstm_fwd(card, shape, reverse, dtype)
+    assert _check_lstm_bwd(card, shape, reverse, dtype)[0] == "wide"
+
+
+@pytest.mark.parametrize("hidden,dtype", [(4096, torch.float32), (4096, torch.bfloat16)])
 def test_lstm_kernels_refuse_a_grid_that_does_not_fit(card, hidden, dtype):
-    """f32 weights of 1792 units (56 rows x 1792 x 4 B a block) exceed a
-    block's shared memory; 4096 units need more than 16 a block: both
-    raise instead of launching."""
+    """4096 units need more than 16 a block on a card of 132 SMs: both
+    kernels raise instead of launching, in either dtype."""
     from speech_enhancement_torch.kernels.lstm import lstm_bwd, lstm_fwd
     x_proj, w_hh, h0, c0 = _lstm_inputs(2, 2, hidden, dtype, card, state=False)
     with pytest.raises(RuntimeError, match="cooperative"):

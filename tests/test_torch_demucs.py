@@ -6,6 +6,7 @@ BLSTM with ``fused_rnn=True`` (the recurrence kernels' plain versions on
 the CPU) against the JAX ``fused="force"`` Pallas kernel in interpret mode,
 and the weight rescale against ``post_init_params`` on the same weights."""
 
+import dataclasses
 import functools
 
 import jax
@@ -56,6 +57,29 @@ def test_demucs_options_round_trip_and_match_jax():
     check_round_trip(fam, functools.partial(IMPORTER, depth=2, dconv_mode=3, lstm_layers=1,
                                             dconv_attn=1, dconv_lstm=1))
     check_eval(fam, np.random.default_rng(2))
+
+
+def test_demucs_bottleneck_blstm_fused_matches_jax(monkeypatch):
+    """The bottleneck BLSTM of two layers with ``fused_rnn`` (on the card at
+    configs/demucs_clarity.yaml's widths, 2048 units, the wide design), at
+    a bottleneck of 128 (channels 32, depth 3: a lane multiple, so the JAX
+    ``fused_rnn="force"`` takes its Pallas kernel, in interpret mode):
+    the port's plain versions of the kernels against it, the bottleneck's
+    four recurrences through ``fused_lstm``."""
+    fam = FAMILY.variant(channels=32, lstm_layers=2, fused_rnn=True)
+    fam = dataclasses.replace(fam, jax_factory=lambda **kw: jax_demucs.Demucs(
+        **{**kw, "fused_rnn": "force"}))
+    check_round_trip(fam, functools.partial(IMPORTER, lstm_layers=2))
+    calls = []
+    plain = lstm_k.fused_lstm_plain
+
+    def spy(x_proj, *args, **kw):
+        calls.append(x_proj.shape[-1])
+        return plain(x_proj, *args, **kw)
+
+    monkeypatch.setattr(lstm_k, "fused_lstm_plain", spy)
+    check_eval(fam, np.random.default_rng(3))
+    assert calls.count(4 * 128) == 4  # two layers x two directions at the bottleneck
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

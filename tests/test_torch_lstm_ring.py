@@ -1,9 +1,10 @@
 """A numpy run of the bf16 LSTM forward kernel's ring path, on the CPU.
 
 ``csrc/lstm_fwd.cu:lstm_fwd_ring`` builds only on the card, so this file
-mirrors its host plan (``ring::make_plan``) and walks its indexing with
-numpy: the slice rows per gate and unit, the ldmatrix row addresses of the
-A and B fragments, the rounds' slabs of h_prev in the ring (each warp's
+takes its host plan's mirror (``kernels/lstm.py:fwd_ring_plan``, line for
+line ``ring::make_plan``) and walks its indexing with numpy: the slice
+rows per gate and unit, the ldmatrix row addresses of the A and B
+fragments, the rounds' slabs of h_prev in the ring (each warp's
 own copies, the staggered k order, zero fill past B and H), the split
 partials' shared-memory layout
 and the register epilogue's reading of the accumulators. It holds the
@@ -18,53 +19,11 @@ import pytest
 import torch
 
 from speech_enhancement_torch.kernels.lstm import fused_lstm_plain
+from speech_enhancement_torch.kernels.lstm import fwd_ring_plan as ring_plan
 
-WARPS, STAGES, SPAD, MAX_KC = 8, 3, 8, 256
+WARPS = 8
 H100_SMEM = 232448  # cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100
 H100_SMS = 132
-
-
-def align16(n):
-    return (n + 15) // 16 * 16
-
-
-def ring_plan(units, hidden, batch, smem_limit):
-    """``ring::make_plan`` of csrc/lstm_fwd.cu, line for line; None where it
-    returns false."""
-    mt = 4 if units > 8 else 2
-    hp = align16(hidden)
-    p = {"units": units, "mt": mt, "rows": 4 * units, "hp": hp, "pitch": hp + SPAD}
-    p["ring_offset"] = align16(p["rows"] * p["pitch"] * 2)
-    nt = (batch + 7) // 8
-    best = None
-    for w in range(3 if mt == 4 else 6, 0, -1):
-        wn = WARPS if nt >= WARPS else nt
-        splits = 1 if nt >= WARPS else WARPS // nt
-        if splits > 1 and w > 1:
-            continue
-        nb = wn * w * 8
-        chunks = (nt * 8 + nb - 1) // nb
-        part = (splits - 1) * mt * 16 * nb * 4
-        room = smem_limit - p["ring_offset"] - part
-        if room <= 0:
-            continue
-        fit = room // STAGES // (nb * 2) - SPAD
-        if fit < 16:
-            continue
-        kc = 16
-        while 2 * kc <= fit and 2 * kc <= MAX_KC and kc < hp:
-            kc *= 2
-        if best is not None and chunks * w >= best["chunks"] * best["ntw"]:
-            continue
-        best = {"ntw": w, "wn": wn, "splits": splits, "nb": nb, "chunks": chunks, "kc": kc}
-    if best is None:
-        return None
-    p.update(best)
-    p["spitch"] = p["kc"] + SPAD
-    p["kr"] = (hp + p["kc"] - 1) // p["kc"]
-    p["part_offset"] = p["ring_offset"] + STAGES * p["nb"] * p["spitch"] * 2
-    p["smem_bytes"] = p["part_offset"] + (p["splits"] - 1) * mt * 16 * p["nb"] * 4
-    return p
 
 
 def ldmatrix(buf, addrs):

@@ -156,6 +156,8 @@ def _force_first(text: str) -> str:
 
 
 FORCE_FIRST = [
+    ("const int design = choose<T>(a, sms, optin, rp, fp, wp);",
+     "const int design = choose<T>(a, sms, optin, rp, fp, wp) < 0 ? -1 : 0;"),
     ("const int design = choose<T>(a, sms, optin, rp, fp);",
      "const int design = choose<T>(a, sms, optin, rp, fp) < 0 ? -1 : 0;"),
     ("  if (sizeof(T) == 2 && a.vec && reinterpret_cast<uintptr_t>(a.wt) % 16 == 0) {",
